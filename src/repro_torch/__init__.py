@@ -5,8 +5,10 @@ It imports ``torch`` and ``numpy`` only, never ``jax``, ``repro`` or
 :mod:`repro_torch.core` carries the main path (schedule -> routing ->
 ``OpenOpticsNet.run`` -> ``fabric.simulate``), and
 :mod:`repro_torch.kernels` its hand-written CUDA kernels with their plain
-PyTorch versions. Entry points run on CUDA unless given ``device="cpu"``.
+PyTorch versions. :mod:`repro_torch.models`, :mod:`repro_torch.configs` and
+:mod:`repro_torch.launch` carry the language-model serving path
+(``launch.serve``). Entry points run on CUDA unless given ``device="cpu"``.
 """
-from . import core, kernels
+from . import configs, core, kernels, launch, models
 
-__all__ = ["core", "kernels"]
+__all__ = ["configs", "core", "kernels", "launch", "models"]

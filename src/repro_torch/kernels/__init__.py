@@ -5,7 +5,13 @@ use by :mod:`._build`, and a module here holding its wrapper (which counts
 its launches in ``launches``) and its plain PyTorch version. The wrappers
 dispatch by the device of their inputs: the plain version on the CPU, the
 kernel on CUDA.
-"""
-from . import admission, time_flow_lookup
 
-__all__ = ["admission", "time_flow_lookup"]
+The fabric's main path runs ``time_flow_lookup`` and ``admission``; the
+language-model serving path runs ``flash_attention`` (prefill),
+``decode_attention`` (decode) and ``rg_lru`` (the RG-LRU scan at prefill).
+"""
+from . import (admission, decode_attention, flash_attention, rg_lru,
+               time_flow_lookup)
+
+__all__ = ["admission", "decode_attention", "flash_attention", "rg_lru",
+           "time_flow_lookup"]

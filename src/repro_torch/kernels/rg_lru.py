@@ -1,0 +1,86 @@
+"""RG-LRU linear recurrence: the CUDA kernel ``csrc/rg_lru.cu`` and its
+plain PyTorch version.
+
+Port of the Pallas TPU kernel ``repro/kernels/rg_lru.py :: rg_lru`` and of
+its oracle ``repro/kernels/ref.py :: rg_lru_ref``: ``h_t = a_t * h_{t-1} +
+b_t`` along axis 1 with ``h_0 = 0``, for ``a, b: [B, L, W]`` float32. The
+reference model computes the same scan with ``jax.lax.associative_scan``
+(``repro/models/layers.py :: rglru_apply``); the port's RG-LRU block calls
+:func:`rg_lru` there.
+
+The kernel walks time in order, one thread per (batch, channel); the
+reference scans associatively, so the two round in another order and agree
+to a relative error of about 1e-6 (the tests hold them to 1e-4, the
+tolerance of ``tests/test_kernels.py``).
+
+:func:`rg_lru` dispatches by the device of its inputs: the plain version
+for CPU tensors, the kernel for CUDA tensors (or an error, never a
+fallback). ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # a, b, h, B, L, W, stream
+    "rg_lru_launch": ([_P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+}
+
+
+def rg_lru_plain(a, b):
+    """The plain PyTorch version: the recurrence as a loop over time, in
+    the kernel's order. Runs on any device."""
+    h = torch.empty_like(b)
+    state = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        state = a[:, t] * state + b[:, t]
+        h[:, t] = state
+    return h
+
+
+def _require_cuda(a, b):
+    for x in (a, b):
+        if x.device.type != "cuda" or x.device != a.device:
+            raise ValueError("rg_lru: the kernel takes CUDA tensors on one "
+                             f"device, got {x.device}")
+
+
+def _check(a, b):
+    if a.dim() != 3 or a.shape != b.shape:
+        raise ValueError("rg_lru: expects a and b of one shape [B, L, W], "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    for x in (a, b):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("rg_lru: a and b must be contiguous float32, "
+                             f"got {x.dtype}")
+    if max(a.shape) >= 2 ** 31:
+        raise ValueError(f"rg_lru: shape {tuple(a.shape)} out of range")
+
+
+def rg_lru(a, b):
+    """h_t = a_t * h_{t-1} + b_t over axis 1, h_0 = 0.
+
+    a, b: ``[B, L, W]`` float32. Returns h: ``[B, L, W]`` float32.
+    """
+    global launches
+    if a.device.type == "cpu":
+        return rg_lru_plain(a, b)
+    _require_cuda(a, b)
+    _check(a, b)
+    B, L, W = a.shape
+    h = torch.empty_like(a)
+    if h.numel() == 0:
+        return h
+    lib = _build.load("rg_lru", _SIGNATURES)
+    _build.launch(lib.rg_lru_launch, "rg_lru", a.data_ptr(), b.data_ptr(),
+                  h.data_ptr(), B, L, W,
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    launches += 1
+    return h

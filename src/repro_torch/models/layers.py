@@ -1,0 +1,340 @@
+"""Model layers of the port: ``nn.Module``s holding the parameters, and
+plain functions on tensors that mirror ``repro.models.layers``.
+
+The reference's layers compute attention and the RG-LRU scan in jnp
+(``chunked_attention`` at prefill, an einsum at decode,
+``jax.lax.associative_scan`` for the recurrence); its Pallas kernels
+implement the same math. The port's layers call the hand-written kernels at
+those places: :func:`attn_apply` runs ``kernels.flash_attention`` at
+prefill and ``kernels.decode_attention`` at decode, :func:`rglru_apply`
+runs ``kernels.rg_lru`` at prefill. On CPU tensors the kernels' plain
+versions run instead. The large projections (``x @ w``) are
+``torch.matmul``, as the reference leaves them to XLA; a bfloat16 product
+returns bfloat16, as in JAX.
+
+Parameters keep the reference's names and dtypes (bfloat16 weights, float32
+norm scales and ``lam``), so :func:`repro_torch.models.params_from_numpy`
+can carry a reference parameter tree over leaf by leaf.
+
+Where the port differs from the reference:
+
+* decode (:func:`attn_apply` with a cache and one token) writes the new key
+  and value into the cache in place and returns that cache; the reference
+  returns an updated copy. Prefill returns new tensors and leaves the cache
+  it is given untouched.
+* the decode softmax weights stay in float32 for the product with V; the
+  reference's einsum path rounds them to bfloat16 first.
+* cross-attention (``kv_src``), the MoE FFN and the xLSTM blocks are not
+  ported yet (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import decode_attention as _decode
+from ..kernels import flash_attention as _flash
+from ..kernels import rg_lru as _rg_lru
+from .config import ArchConfig
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _normal_(p: nn.Parameter, gen: torch.Generator, scale: float) -> None:
+    """bfloat16 (or float32) normals at ``scale``, drawn in float32 as the
+    reference's ``_dense_init`` draws them."""
+    p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
+                        dtype=torch.float32) * scale)
+
+
+def _dense_init_(p: nn.Parameter, gen: torch.Generator, scale=None) -> None:
+    _normal_(p, gen, scale if scale is not None else 1.0 / math.sqrt(p.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm / LayerNorm with a float32 scale, or the non-parametric
+    LayerNorm (``layernorm_np``, olmo) with none."""
+
+    def __init__(self, cfg: ArchConfig, d: int, device=None):
+        super().__init__()
+        self.kind = cfg.norm
+        self.scale = (None if cfg.norm == "layernorm_np"
+                      else _param((d,), torch.float32, device))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        if self.scale is not None:
+            self.scale.fill_(1.0)
+
+    def forward(self, x):
+        return norm_apply(self.kind, self.scale, x)
+
+
+def norm_apply(kind: str, scale, x):
+    """The reference's ``norm_apply``: computed in float32, cast back."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        y = y * scale
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        if kind == "layernorm":
+            y = y * scale
+    return y.to(x.dtype)
+
+
+def _rms(x):
+    xf = x.float()
+    return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: [B, L, H, hd]; positions: [B, L] absolute token positions."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq                 # [B, L, half]
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional local window / softcap / cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AttnCache:
+    """KV cache. ``k``/``v``: [B, S_cache, Kv, hd]; ``pos``: [B, S_cache]
+    int32 absolute positions (-1 = empty), a ring buffer for local layers."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        bf = torch.bfloat16
+        self.wq = _param((d, hq * hd), bf, device)
+        self.wk = _param((d, hkv * hd), bf, device)
+        self.wv = _param((d, hkv * hd), bf, device)
+        self.wo = _param((hq * hd, d), bf, device)
+        self.q_norm = _param((hd,), torch.float32, device) if cfg.qk_norm else None
+        self.k_norm = _param((hd,), torch.float32, device) if cfg.qk_norm else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            _dense_init_(w, gen)
+        for s in (self.q_norm, self.k_norm):
+            if s is not None:
+                s.fill_(1.0)
+
+
+def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
+               causal: bool = True, window: int = 0,
+               cache: AttnCache | None = None, write_index: int | None = None,
+               kv_src=None):
+    """Self-attention (GQA). Returns (out, new_cache).
+
+    x: [B, L, d]; positions: [B, L] absolute positions, consecutive along L
+    (the stack's are ``0 .. L-1`` at prefill and the decode index at
+    decode; the masks depend only on their differences). With a cache and
+    one token (decode), the new K/V go into slot ``write_index % S`` in
+    place and ``decode_attention`` attends over the cache for a query at
+    position ``write_index`` (the reference's ``decode_step`` passes the
+    same index as the position). Otherwise ``flash_attention`` attends over
+    the sequence, and with a cache the last S positions land in a new one.
+    """
+    if kv_src is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_src) waits for the enc-dec slice of the "
+            "port (ROADMAP Queue 1 item 10)")
+    B, L, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p.wq).reshape(B, L, hq, hd)
+    k = (x @ p.wk).reshape(B, L, hkv, hd)
+    v = (x @ p.wv).reshape(B, L, hkv, hd)
+    if cfg.qk_norm:
+        q = (_rms(q) * p.q_norm).to(x.dtype)
+        k = (_rms(k) * p.k_norm).to(x.dtype)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    scale = cfg.attn_scale_override or (1.0 / math.sqrt(hd))
+
+    if cache is not None and L == 1:
+        # decode: ring-write the new KV at index % S, attend over the cache
+        idx = int(write_index) % cache.k.shape[1]
+        cache.k[:, idx] = k[:, 0]
+        cache.v[:, idx] = v[:, 0]
+        cache.pos[:, idx] = positions[:, 0].to(torch.int32)
+        out = _decode.decode_attention(
+            q[:, 0], cache.k, cache.v, cache.pos, int(write_index),
+            n_q_heads=hq, n_kv_heads=hkv, window=window,
+            softcap=cfg.attn_softcap, scale=scale)
+        return out.reshape(B, 1, hq * hd) @ p.wo, cache
+
+    new_cache = None
+    if cache is not None:
+        # prefill: the last S positions land in the cache
+        S = cache.k.shape[1]
+        pos32 = positions.to(torch.int32)
+        if S == L:
+            new_cache = AttnCache(k, v, pos32)
+        elif S < L:
+            # a ring smaller than the sequence: position p lives in slot
+            # p % S, a roll of the tail
+            shift = (L - S) % S
+            new_cache = AttnCache(torch.roll(k[:, -S:], shift, 1),
+                                  torch.roll(v[:, -S:], shift, 1),
+                                  torch.roll(pos32[:, -S:], shift, 1))
+        else:
+            new_cache = AttnCache(cache.k.clone(), cache.v.clone(),
+                                  cache.pos.clone())
+            new_cache.k[:, :L] = k
+            new_cache.v[:, :L] = v
+            new_cache.pos[:, :L] = pos32
+    qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
+    kf = k.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
+    of = _flash.flash_attention(qf, kf, vf, n_q_heads=hq, n_kv_heads=hkv,
+                                causal=causal, window=window,
+                                softcap=cfg.attn_softcap, scale=scale)
+    out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
+    return out @ p.wo, new_cache
+
+
+def make_cache(cfg: ArchConfig, batch: int, seq_len: int, window: int = 0,
+               device=None, dtype=torch.bfloat16) -> AttnCache:
+    S = min(seq_len, window) if window > 0 else seq_len
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    return AttnCache(
+        k=torch.zeros((batch, S, hkv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, S, hkv, hd), dtype=dtype, device=device),
+        pos=torch.full((batch, S), -1, dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# GLU MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        d, ff, bf = cfg.d_model, cfg.d_ff, torch.bfloat16
+        self.w_gate = _param((d, ff), bf, device)
+        self.w_up = _param((d, ff), bf, device)
+        self.w_down = _param((ff, d), bf, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.w_gate, self.w_up, self.w_down):
+            _dense_init_(w, gen)
+
+
+def _act(cfg: ArchConfig, x):
+    # jax.nn.gelu is the tanh approximation by default
+    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p: MLP, x, cfg: ArchConfig):
+    return (_act(cfg, x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+class RGLRU(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        d, bf = cfg.d_model, torch.bfloat16
+        w = cfg.lru_width or d
+        self.w_in = _param((d, w), bf, device)
+        self.w_gate_branch = _param((d, w), bf, device)
+        self.conv = _param((cfg.conv_width, w), bf, device)
+        self.w_a = _param((w, w), bf, device)
+        self.w_x = _param((w, w), bf, device)
+        self.lam = _param((w,), torch.float32, device)
+        self.w_out = _param((w, d), bf, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # the reference's draw order: w_in, w_gate_branch, conv, w_a, w_x,
+        # w_out; lam = 2 (softplus(2) ~ a healthy decay)
+        _dense_init_(self.w_in, gen)
+        _dense_init_(self.w_gate_branch, gen)
+        _dense_init_(self.conv, gen, scale=0.1)
+        _dense_init_(self.w_a, gen)
+        _dense_init_(self.w_x, gen)
+        _dense_init_(self.w_out, gen)
+        self.lam.fill_(2.0)
+
+
+def _rglru_coeffs(p: RGLRU, u):
+    """u: [..., w] post-conv activations -> (a, gated input), both float32."""
+    c = 8.0
+    uf = u.float()
+    r = torch.sigmoid(uf @ p.w_a.float())
+    i = torch.sigmoid(uf @ p.w_x.float())
+    a = torch.exp(-c * F.softplus(p.lam) * r)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-8)) * (i * uf)
+    return a, gated
+
+
+def rglru_apply(p: RGLRU, x, cfg: ArchConfig, *, state=None,
+                conv_state=None):
+    """x: [B, L, d]. Full-sequence mode (prefill, zero initial state) runs
+    the recurrence ``h_t = a_t h_{t-1} + b_t`` through ``kernels.rg_lru``;
+    single-step mode (L == 1 with a state) does the O(1) decode update.
+    Returns (out, (state [B, w] float32, conv_state [B, cw, w]))."""
+    B, L, _ = x.shape
+    u = x @ p.w_in                                          # [B, L, w]
+    gate = F.gelu(x @ p.w_gate_branch, approximate="tanh")
+    cw = cfg.conv_width
+    if state is None or L > 1:
+        # causal temporal conv via shifted adds, in the working dtype
+        conv = torch.zeros_like(u)
+        for i in range(cw):
+            shifted = F.pad(u, (0, 0, i, 0))[:, :L]
+            conv = conv + shifted * p.conv[cw - 1 - i]
+        a, b = _rglru_coeffs(p, conv)
+        hh = _rg_lru.rg_lru(a, b)
+        new_state = hh[:, -1]
+        # the last conv_width inputs become the decode-time conv state
+        new_conv = F.pad(u, (0, 0, cw - 1, 0))[:, L - 1:L - 1 + cw]
+    else:
+        # decode: roll the conv state, apply the conv (float32 sums, as an
+        # XLA dot of bfloat16), one recurrence step
+        conv_state = torch.cat([conv_state[:, 1:], u], dim=1)   # [B, cw, w]
+        conv = (conv_state.float() * p.conv.float()).sum(1)[:, None]
+        a, b = _rglru_coeffs(p, conv.to(u.dtype))
+        hh = a * state[:, None] + b
+        new_state = hh[:, -1]
+        new_conv = conv_state
+    out = (hh.to(x.dtype) * gate) @ p.w_out
+    return out, (new_state, new_conv)
+
+
+def rglru_state(cfg: ArchConfig, batch: int, device=None):
+    w = cfg.lru_width or cfg.d_model
+    return (torch.zeros((batch, w), dtype=torch.float32, device=device),
+            torch.zeros((batch, cfg.conv_width, w), dtype=torch.bfloat16,
+                        device=device))

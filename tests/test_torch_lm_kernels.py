@@ -1,0 +1,196 @@
+"""The port's language-model kernels on the CPU: the plain versions of
+``flash_attention``, ``decode_attention`` and ``rg_lru`` against the Pallas
+kernels (interpret mode, through ``repro.kernels.ops`` as
+``tests/test_kernels.py`` calls them) and the ``repro.kernels.ref``
+oracles, over the sweeps of ``test_kernels.py`` plus ragged lengths, a
+wrapped ring buffer and empty cache slots.
+
+Tolerances are those of ``test_kernels.py``: relative error (max |a - b| /
+max |b|) 2e-5 in float32 and 2e-2 in bfloat16, 1e-4 for the RG-LRU scan
+(the plain version walks time in order, the reference scans
+associatively). The CUDA kernels are held against these plain versions on
+the card by ``chip_smoke.py``, which also runs their tile edges (skipped
+key tiles, ragged tails, ``q_offset``, empty caches).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as R_ops  # noqa: E402
+from repro_torch.kernels import decode_attention as Q_da  # noqa: E402
+from repro_torch.kernels import flash_attention as Q_fa  # noqa: E402
+from repro_torch.kernels import rg_lru as Q_rl  # noqa: E402
+
+TOL = {"f32": 2e-5, "bf16": 2e-2}
+JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def relerr(a, b):
+    a = a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+    b = b.float().numpy() if isinstance(b, torch.Tensor) else np.asarray(b, np.float32)
+    return np.max(np.abs(a - b)) / (np.abs(b).max() + 1e-6)
+
+
+def both(x, dt):
+    """The same values as a jnp array and a torch tensor of dtype ``dt``
+    (rounded once, by JAX, then carried exactly)."""
+    j = jnp.asarray(x, JNP[dt])
+    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(TORCH[dt])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [            # B, Hq, Hkv, L, S, hd (test_kernels.py's sweep)
+    (1, 2, 1, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),
+    (1, 8, 8, 128, 384, 128),   # MHA, rectangular
+    (2, 4, 1, 128, 128, 128),   # MQA
+]
+FLASH_KWARGS = [dict(causal=True), dict(causal=True, window=64),
+                dict(causal=True, softcap=30.0), dict(causal=False)]
+
+
+def _flash_case(dt, B, Hq, Hkv, L, S, hd, kwargs, seed, **pallas_kw):
+    rng = np.random.default_rng(seed)
+    qj, qt = both(rng.normal(size=(B * Hq, L, hd)), dt)
+    kj, kt = both(rng.normal(size=(B * Hkv, S, hd)), dt)
+    vj, vt = both(rng.normal(size=(B * Hkv, S, hd)), dt)
+    heads = dict(n_q_heads=Hq, n_kv_heads=Hkv)
+    pallas = R_ops.flash_attention(qj, kj, vj, **heads, **pallas_kw, **kwargs)
+    ref = R_ops.flash_attention(qj, kj, vj, **heads, impl="ref", **kwargs)
+    port = Q_fa.flash_attention(qt, kt, vt, **heads, **kwargs)
+    assert port.dtype == TORCH[dt] and port.shape == qt.shape
+    assert relerr(port, pallas) < TOL[dt], kwargs
+    assert relerr(port, ref) < TOL[dt], kwargs
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,L,S,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("kwargs", FLASH_KWARGS, ids=["causal", "window",
+                                                      "softcap", "full"])
+def test_flash_plain_matches_pallas_and_ref(dt, B, Hq, Hkv, L, S, hd, kwargs):
+    _flash_case(dt, B, Hq, Hkv, L, S, hd, kwargs, seed=L + S + hd,
+                bq=128, bk=128)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,L,hd,kwargs,blk", [
+    # lengths no 64-row tile of the CUDA kernel divides; the Pallas kernel
+    # needs L % bq == 0, so it runs one block of the whole length
+    (1, 4, 2, 100, 64, dict(causal=True, window=24), 100),
+    (2, 4, 1, 200, 128, dict(causal=True, softcap=50.0), 100),
+    (1, 2, 2, 1, 64, dict(causal=True), 1),
+])
+def test_flash_plain_ragged_lengths(dt, B, Hq, Hkv, L, hd, kwargs, blk):
+    _flash_case(dt, B, Hq, Hkv, L, L, hd, kwargs, seed=L, bq=blk, bk=blk)
+
+
+def test_flash_plain_q_offset():
+    _flash_case("f32", 1, 2, 2, 128, 256, 64, dict(q_offset=128), seed=7)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kwargs", [
+    dict(q_offset=128, window=64),            # key tiles wholly out of reach
+    dict(q_offset=100, window=300, softcap=30.0),
+], ids=["window", "softcap"])
+def test_flash_plain_q_offset_window(dt, kwargs):
+    # a query tile past the start of the keys: the lower window edge and
+    # the causal edge both cut through key tiles
+    _flash_case(dt, 2, 4, 1, 128, 256, 64, kwargs, seed=11, bq=128, bk=128)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+def _decode_case(dt, B, Hq, Hkv, S, hd, pos, cur, seed, **kwargs):
+    rng = np.random.default_rng(seed)
+    qj, qt = both(rng.normal(size=(B, Hq, hd)), dt)
+    kj, kt = both(rng.normal(size=(B, S, Hkv, hd)), dt)
+    vj, vt = both(rng.normal(size=(B, S, Hkv, hd)), dt)
+    pj, pt = jnp.asarray(pos, jnp.int32), torch.tensor(pos, dtype=torch.int32)
+    heads = dict(n_q_heads=Hq, n_kv_heads=Hkv)
+    pallas = R_ops.decode_attention(qj, kj, vj, pj, jnp.int32(cur), **heads,
+                                    bs=128, **kwargs)
+    ref = R_ops.decode_attention(qj, kj, vj, pj, jnp.int32(cur), **heads,
+                                 impl="ref", **kwargs)
+    port = Q_da.decode_attention(qt, kt, vt, pt, cur, **heads, **kwargs)
+    assert port.dtype == TORCH[dt] and port.shape == qt.shape
+    assert relerr(port, pallas) < TOL[dt]
+    assert relerr(port, ref) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,window", [
+    (2, 4, 2, 256, 64, 0),
+    (1, 8, 1, 128, 128, 0),
+    (2, 4, 4, 256, 64, 64),
+    (3, 2, 2, 384, 128, 128),
+    (1, 16, 1, 256, 256, 128),  # RecurrentGemma's MQA group at hd 256
+])
+def test_decode_plain_matches_pallas_and_ref(dt, B, Hq, Hkv, S, hd, window):
+    # test_kernels.py's cache: slots in order, the last 40 empty
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    pos = np.where(pos < S - 40, pos, -1)
+    _decode_case(dt, B, Hq, Hkv, S, hd, pos, S - 41, seed=S + hd,
+                 window=window)
+
+
+def ring_positions(B, S, cur):
+    """Positions 0..cur written into an S-slot ring: slot j holds the latest
+    p <= cur with p % S == j, or -1."""
+    j = np.arange(S)
+    pos = cur - (cur - j) % S
+    return np.broadcast_to(np.where(pos >= 0, pos, -1), (B, S)).copy()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["wrapped", "wrapped-window", "one-valid",
+                                  "softcap", "mha", "all-empty"])
+def test_decode_plain_ring_buffer(dt, case):
+    B, Hq, Hkv, S, hd, cur, kw = 2, 8, 1, 256, 64, 700, {}
+    pos = ring_positions(B, S, cur)          # wrapped: not sorted by slot
+    if case == "wrapped-window":
+        kw = dict(window=100)
+    elif case == "one-valid":
+        keep = pos[:, 37].copy()
+        pos[:] = -1
+        pos[:, 37] = keep
+    elif case == "softcap":
+        kw = dict(softcap=30.0, window=200)
+    elif case == "mha":
+        Hkv = Hq
+    elif case == "all-empty":               # no valid slot: V is averaged
+        pos[:] = -1
+    _decode_case(dt, B, Hq, Hkv, S, hd, pos, cur, seed=len(case), **kw)
+
+
+# ---------------------------------------------------------------------------
+# rg_lru
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,L,W,bl,bw", [
+    (1, 256, 256, 128, 128),
+    (2, 512, 512, 256, 512),
+    (3, 128, 384, 128, 128),
+    (2, 100, 100, 100, 100),    # ragged
+    (1, 1, 8, 1, 8),
+    (3, 384, 200, 128, 200),    # odd batch, ragged width
+])
+def test_rg_lru_plain_matches_pallas_and_ref(B, L, W, bl, bw):
+    rng = np.random.default_rng(L + W)
+    a = rng.uniform(0.2, 0.999, size=(B, L, W)).astype(np.float32)
+    b = rng.normal(size=(B, L, W)).astype(np.float32)
+    pallas = R_ops.rg_lru(jnp.asarray(a), jnp.asarray(b), bl=bl, bw=bw)
+    ref = R_ops.rg_lru(jnp.asarray(a), jnp.asarray(b), impl="ref")
+    port = Q_rl.rg_lru(torch.tensor(a), torch.tensor(b))
+    assert port.dtype == torch.float32 and port.shape == (B, L, W)
+    assert relerr(port, pallas) < 1e-4
+    assert relerr(port, ref) < 1e-4

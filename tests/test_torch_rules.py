@@ -4,7 +4,8 @@
   example, imports ``jax``, ``repro`` or ``networkx`` (the card's machine
   has none of them), and the package imports with all three blocked;
 * entry points run on CUDA unless told otherwise: without a card and
-  without ``device="cpu"`` they raise, never quietly run on the CPU;
+  without ``device="cpu"`` they raise, never quietly run on the CPU (the
+  language-model entry points are checked in ``test_torch_lm.py``);
 * a kernel wrapper given tensors that are not on the CPU launches its
   kernel or raises, never falls back to the plain version, and validates
   what it passes to the kernel;
@@ -24,6 +25,9 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as Q  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import admission as Q_adm  # noqa: E402
+from repro_torch.kernels import decode_attention as Q_da  # noqa: E402
+from repro_torch.kernels import flash_attention as Q_fa  # noqa: E402
+from repro_torch.kernels import rg_lru as Q_rl  # noqa: E402
 from repro_torch.kernels import time_flow_lookup as Q_tfl  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,7 +57,9 @@ def test_port_imports_with_jax_repro_networkx_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro', 'networkx'):\n"
             "    sys.modules[m] = None\n"
-            "import repro_torch, repro_torch.core, repro_torch.kernels\n")
+            "import repro_torch, repro_torch.core, repro_torch.kernels\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.launch.serve\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -115,6 +121,43 @@ def _admission_args(device):
             torch.zeros(3, dtype=torch.int32, device=device))
 
 
+FLASH_HEADS = dict(n_q_heads=4, n_kv_heads=2)
+DECODE_HEADS = dict(n_q_heads=4, n_kv_heads=2)
+
+
+def _flash_args(device):
+    bf = dict(dtype=torch.bfloat16, device=device)
+    return (torch.zeros(8, 5, 64, **bf), torch.zeros(4, 7, 64, **bf),
+            torch.zeros(4, 7, 64, **bf))
+
+
+def _decode_args(device):
+    bf = dict(dtype=torch.bfloat16, device=device)
+    return (torch.zeros(2, 4, 64, **bf), torch.zeros(2, 9, 2, 64, **bf),
+            torch.zeros(2, 9, 2, 64, **bf),
+            torch.zeros(2, 9, dtype=torch.int32, device=device), 3)
+
+
+def _rg_lru_args(device):
+    return (torch.zeros(2, 5, 8, device=device),
+            torch.zeros(2, 5, 8, device=device))
+
+
+def _call_lm_wrappers(device):
+    """Call each language-model kernel wrapper once; returns the errors."""
+    calls = [lambda: Q_fa.flash_attention(*_flash_args(device), **FLASH_HEADS),
+             lambda: Q_da.decode_attention(*_decode_args(device),
+                                           **DECODE_HEADS),
+             lambda: Q_rl.rg_lru(*_rg_lru_args(device))]
+    errors = []
+    for call in calls:
+        try:
+            call()
+        except (RuntimeError, ValueError) as e:
+            errors.append(e)
+    return errors
+
+
 @pytest.fixture
 def no_kernel_library(monkeypatch, tmp_path):
     """No built library, no nvcc, and plain versions that fail the test if
@@ -128,6 +171,9 @@ def no_kernel_library(monkeypatch, tmp_path):
         raise AssertionError("fell back to the plain version")
     monkeypatch.setattr(Q_tfl, "time_flow_lookup_plain", plain)
     monkeypatch.setattr(Q_adm, "admission_admit_plain", plain)
+    monkeypatch.setattr(Q_fa, "flash_attention_plain", plain)
+    monkeypatch.setattr(Q_da, "decode_attention_plain", plain)
+    monkeypatch.setattr(Q_rl, "rg_lru_plain", plain)
 
 
 def test_wrappers_raise_without_kernel_library(monkeypatch, no_kernel_library):
@@ -142,6 +188,63 @@ def test_wrappers_raise_without_kernel_library(monkeypatch, no_kernel_library):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         Q_adm.admission_admit(*_admission_args("meta"), num_keys=3)
     assert (Q_tfl.launches, Q_adm.launches) == (l0, a0)
+
+
+def test_lm_wrappers_raise_without_kernel_library(monkeypatch,
+                                                  no_kernel_library):
+    """The same for the language-model kernels: ``meta`` tensors pass the
+    device and input checks and reach the build, which raises."""
+    for mod in (Q_fa, Q_da, Q_rl):
+        monkeypatch.setattr(mod, "_require_cuda", lambda *a: None)
+    counts = (Q_fa.launches, Q_da.launches, Q_rl.launches)
+    errors = _call_lm_wrappers("meta")
+    assert len(errors) == 3
+    assert all(isinstance(e, RuntimeError) and "nvcc not found" in str(e)
+               for e in errors), errors
+    assert (Q_fa.launches, Q_da.launches, Q_rl.launches) == counts
+
+
+def test_lm_wrappers_refuse_non_cuda_devices(no_kernel_library):
+    errors = _call_lm_wrappers("meta")
+    assert len(errors) == 3
+    assert all(isinstance(e, ValueError) and "CUDA" in str(e)
+               for e in errors), errors
+
+
+def test_lm_wrappers_validate_kernel_inputs():
+    q, k, v = _flash_args("cpu")
+    Q_fa._check(q, k, v, 4, 2)
+    bad = [
+        ((q.float(), k, v), 4, 2),                      # dtype
+        ((q, k[:3], v[:3]), 4, 2),                      # kv rows != B * Hkv
+        ((q, k, v), 4, 3),                              # Hq % Hkv
+        ((q[..., :48], k[..., :48], v[..., :48]), 4, 2),  # head dim not built
+        ((q.transpose(1, 2), k, v), 4, 2),              # layout / shape
+        ((q, k, v[:, :6]), 4, 2),                       # k, v shapes differ
+    ]
+    for args, hq, hkv in bad:
+        with pytest.raises(ValueError):
+            Q_fa._check(*args, hq, hkv)
+    q, kc, vc, pos, _ = _decode_args("cpu")
+    Q_da._check(q, kc, vc, pos, 4, 2)
+    bad = [
+        ((q.float(), kc, vc, pos), 4, 2),               # dtype
+        ((q, kc, vc, pos.long()), 4, 2),                # pos dtype
+        ((q, kc, vc, pos[:, :8]), 4, 2),                # pos shape
+        ((q, kc, vc, pos), 4, 1),                       # Kv
+        ((q[..., :60], kc[..., :60].contiguous(),
+          vc[..., :60].contiguous(), pos), 4, 2),       # hd % 8
+        ((q, kc.transpose(1, 2), vc, pos), 4, 2),       # layout
+    ]
+    for args, hq, hkv in bad:
+        with pytest.raises(ValueError):
+            Q_da._check(*args, hq, hkv)
+    a, b = _rg_lru_args("cpu")
+    Q_rl._check(a, b)
+    for args in [(a.double(), b.double()), (a, b[:, :4]), (a[0], b[0]),
+                 (a.transpose(1, 2), b.transpose(1, 2))]:
+        with pytest.raises(ValueError):
+            Q_rl._check(*args)
 
 
 def test_wrappers_refuse_non_cuda_devices(no_kernel_library):
@@ -197,4 +300,5 @@ def test_library_name_follows_source(monkeypatch, tmp_path):
     src.write_text("// two\n")
     assert _build.library_path("k") != first
     assert {p.stem for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")} \
-        == {"time_flow_lookup", "admission"}
+        == {"time_flow_lookup", "admission", "flash_attention",
+            "decode_attention", "rg_lru"}
