@@ -47,6 +47,24 @@ Phases, each fatal on failure:
 11. Profile one full-width prefill and 8 decode steps of RecurrentGemma-9B:
    device time by kernel and by layer, and the device's idle share against
    the wall time of the same work without the profiler.
+12. Hold the grouped matmul kernel (the MoE expert products) against its
+   plain version on the card, per output row: at the four shapes of
+   Qwen3-30B-A3B's MoE path (128 experts; M = 960 at prefill, 1 at decode;
+   K x N = 2,048 x 768 and 768 x 2,048) and at edge shapes (G = 1, M = 1,
+   ragged M, N and K on both load paths, an all-zero group).
+13. Time it as phase 3 does, beside its bound, its launch floor, its plain
+   version and ``torch.bmm`` on the same tensors.
+14. Serve Qwen3-30B-A3B at full width and depth (48 layers, 128 experts,
+   30.5B parameters, random weights from a seed) as phase 9 serves
+   RecurrentGemma-9B. The counts must be 144 grouped matmul and 48 flash
+   launches per prefill, 144 grouped matmul and 48 flash-decode launches
+   per decode step.
+15. Run a full-width, 4-layer Qwen3-30B-A3B: prefill (B = 4, L = 3,072) + 8
+   greedy decode steps through the kernels against the same weights and
+   tokens through the plain versions, as phase 10 does, and count the
+   tokens whose top-8 expert set differs between the two runs.
+16. Profile one full-width, full-depth Qwen3-30B-A3B prefill and 8 decode
+   steps, as phase 11 does.
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -55,6 +73,7 @@ or any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -77,7 +96,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CORE_OPS_PER_S = 67e12      # H100 SXM rate outside the tensor cores
 TC_BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 dense tensor-core peak
 KERNELS = ["time_flow_lookup", "admission", "flash_attention",
-           "decode_attention", "rg_lru"]
+           "decode_attention", "rg_lru", "grouped_matmul"]
 MAIN_CONFIGS = [("default", {}), ("pushback+offload",
                                   dict(pushback=True, offload=True))]
 
@@ -291,6 +310,9 @@ def check_flash(dev):
         ("q_offset 190 S=257", 1, 4, 1, 67, 257, 128,
          dict(causal=True, q_offset=190)),
         ("non-causal hd64", 2, 8, 2, 130, 70, 64, dict(causal=False)),
+        # Qwen3-30B-A3B's prefill: GQA G = 8 at hd 128, causal, no window
+        ("qwen B=4 L=S=3072 Hq32 Hkv4 hd128", 4, 32, 4, 3072, 3072, 128,
+         dict(causal=True)),
     ]
     worst = worst_abs = 0.0
     for i, (name, B, Hq, Hkv, L, S, hd, kw) in enumerate(cases):
@@ -321,6 +343,10 @@ def check_decode(dev):
          dict(softcap=50.0), None),
         ("Hq=Kv=4", 3, 4, 4, 512, 256, 700, dict(), None),
         ("G=2 hd128", 2, 16, 8, 640, 128, 1000, dict(window=256), None),
+        # Qwen3-30B-A3B's decode: G = 8 at hd 128 over a 4,096-slot cache
+        # with no window, its last 995 slots still empty
+        ("qwen B=4 S=4096 Hq32 Kv4 hd128", 4, 32, 4, 4096, 128, 3100, dict(),
+         None),
     ]
     worst = worst_abs = 0.0
     for i, (name, B, Hq, Kv, S, hd, cur, kw, one) in enumerate(cases):
@@ -432,6 +458,79 @@ def time_lm_kernels(dev):
     return t, bounds
 
 
+# the grouped matmul's shapes on Qwen3-30B-A3B's MoE path: G = 128 experts;
+# M = 4 rows x capacity 240 at prefill (B = 4, L = 3,072), capacity 1 at
+# decode; gate/up products d 2,048 -> ff 768, the down product ff -> d
+GMM_PATH = [("prefill_up", 128, 960, 2048, 768),
+            ("prefill_down", 128, 960, 768, 2048),
+            ("decode_up", 128, 1, 2048, 768),
+            ("decode_down", 128, 1, 768, 2048)]
+GMM_TOL = 2e-2                  # bf16 tolerance, held per output row
+
+
+def gmm_inputs(dev, G, M, K, N, seed):
+    """x ~ N(0, 1), w ~ N(0, 1/K) in bf16, so outputs are ~N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(G, M, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(G, K, N, generator=g, device=dev) * K ** -0.5)
+    return x, w.to(torch.bfloat16)
+
+
+def check_gmm(dev):
+    """Kernel vs plain version per output row at the path's shapes and at
+    edge shapes; returns the largest per-row relative error and the largest
+    absolute error."""
+    from repro_torch.kernels import grouped_matmul as gm
+    cases = [(f"path {n} G={G} M={M} K={K} N={N}", G, M, K, N, None)
+             for n, G, M, K, N in GMM_PATH]
+    cases += [
+        ("G=1 M=1", 1, 1, 2048, 768, None),
+        ("ragged, 16-byte loads: M=100 K=200 N=136", 5, 100, 200, 136, None),
+        ("ragged, element loads: M=33 K=100 N=70", 3, 33, 100, 70, None),
+        ("element loads: M=65 K=8 N=129", 2, 65, 8, 129, None),
+        ("N=1 K=37", 1, 64, 37, 1, None),
+        ("all-zero group 2 of 4", 4, 70, 256, 192, 2),
+    ]
+    worst = worst_abs = 0.0
+    for i, (name, G, M, K, N, zero) in enumerate(cases):
+        x, w = gmm_inputs(dev, G, M, K, N, seed=80 + i)
+        if zero is not None:
+            x[zero] = 0
+        got, want = gm.grouped_matmul(x, w), gm.grouped_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if zero is not None and bool(got[zero].any()):
+            raise SystemExit("grouped_matmul: an all-zero group gave non-zeros")
+        e, ea = row_relerr(got, want), abserr(got, want)
+        log(f"  grouped_matmul {name}: row relerr {e:.2e}, max abs err {ea:.2e}")
+        worst, worst_abs = max(worst, e), max(worst_abs, ea)
+    return worst, worst_abs
+
+
+def time_gmm(dev):
+    """Graph-timed ms per call of the kernel, its plain version and
+    ``torch.bmm`` at each of the path's shapes, the launch floor (one
+    8 x 8 product), and each shape's bound."""
+    from repro_torch.kernels import grouped_matmul as gm
+    t, bounds = {}, {}
+    for key, G, M, K, N in GMM_PATH:
+        x, w = gmm_inputs(dev, G, M, K, N, seed=90)
+        t[f"{key}_ms"] = graph_ms(lambda: gm.grouped_matmul(x, w))
+        t[f"{key}_plain_ms"] = graph_ms(lambda: gm.grouped_matmul_plain(x, w),
+                                        calls=2, repeats=3)
+        t[f"{key}_bmm_ms"] = graph_ms(lambda: torch.bmm(x, w))
+        bounds[key] = bound(2 * (G * M * K + G * K * N + G * M * N),
+                            2 * G * M * K * N, TC_BF16_FLOPS_PER_S)
+    x1, w1 = gmm_inputs(dev, 1, 1, 8, 8, seed=91)
+    t["floor_ms"] = graph_ms(lambda: gm.grouped_matmul(x1, w1))
+    log("phase 13 grouped matmul timing (ms per call, median): "
+        + " ".join(f"{k}={v:.5f}" for k, v in t.items()))
+    step = lambda up, down: 48 * (2 * up + down)     # 48 layers x 3 products
+    log(f"  bounds: {json.dumps(bounds)}; per decode step: kernel "
+        f"{step(t['decode_up_ms'], t['decode_down_ms']):.2f} ms, bound "
+        f"{step(bounds['decode_up']['bound_ms'], bounds['decode_down']['bound_ms']):.2f} ms")
+    return t, bounds
+
+
 def bound(nbytes, ops, ops_per_s=CORE_OPS_PER_S):
     """The least time of a call: the larger of its bytes over the memory
     rate and its operations over the peak rate for their type."""
@@ -443,19 +542,20 @@ def bound(nbytes, ops, ops_per_s=CORE_OPS_PER_S):
 def lm_kernel_modules():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import rg_lru as rl
-    return fa, da, rl
+    return fa, da, rl, gm
 
 
-def run_serve(dev):
-    """Serve RecurrentGemma-9B at full width and depth on the card; the
-    kernel counts are zeroed just before and read just after. Returns
-    (serve result, launch counts, prefills, decode steps, peak GiB)."""
+def run_serve(dev, arch):
+    """Serve ``arch`` at full width and depth on the card; the kernel
+    counts are zeroed just before and read just after. Returns (serve
+    result, launch counts, prefills, decode steps, peak GiB, wall s)."""
     from repro_torch.kernels import admission as adm
     from repro_torch.kernels import time_flow_lookup as tfl
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
-    fa, da, rl = lm_kernel_modules()
+    fa, da, rl, gm = lm_kernel_modules()
     calls = dict(prefill=0, decode=0)
     orig = Model.prefill, Model.decode_step
 
@@ -470,15 +570,16 @@ def run_serve(dev):
     Model.prefill, Model.decode_step = prefill, decode_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tfl.launches = adm.launches = fa.launches = da.launches = rl.launches = 0
+    tfl.launches = adm.launches = 0
+    fa.launches = da.launches = rl.launches = gm.launches = 0
     t0 = time.perf_counter()
     try:
-        res = serve(arch="recurrentgemma-9b", preset="full", **SERVE_ARGS,
-                    device="cuda")
+        res = serve(arch=arch, preset="full", **SERVE_ARGS, device="cuda")
     finally:
         Model.prefill, Model.decode_step = orig
     wall = time.perf_counter() - t0
-    counts = dict(flash=fa.launches, decode=da.launches, rg_lru=rl.launches)
+    counts = dict(flash=fa.launches, decode=da.launches, rg_lru=rl.launches,
+                  gmm=gm.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return res, counts, calls["prefill"], calls["decode"], peak, wall
 
@@ -495,6 +596,13 @@ SERVE_ARGS = dict(requests=8, batch=4, prompt_len=3072, max_new=32,
 # 8.26e-3 to 9.07e-3 at every decode step (PERF.md, fault probe 2)
 MODEL_TOL = 1e-2
 MODEL_RMS_TOL = 6.5e-3
+# phase 15 limits, the same metrics on the 4-layer Qwen3-30B-A3B with the
+# plain run held to the kernel run's experts. Sound runs read 1.41e-2 to
+# 2.46e-2 (RMS) and 1.48e-2 to 2.80e-2 (max) per step; a grouped matmul that
+# skips its last K step reads 0.53 to 0.69 (RMS) and 0.53 to 0.76 (max) at
+# every step (PERF.md, PR 13)
+QWEN_TOL = 4e-2
+QWEN_RMS_TOL = 3.5e-2
 
 
 class plain_versions:
@@ -503,9 +611,10 @@ class plain_versions:
     of CUDA weights runs both ways."""
 
     def __enter__(self):
-        fa, da, rl = lm_kernel_modules()
+        fa, da, rl, gm = lm_kernel_modules()
         self.saved = [(m, n, getattr(m, n)) for m, n in (
-            (fa, "flash_attention"), (da, "decode_attention"), (rl, "rg_lru"))]
+            (fa, "flash_attention"), (da, "decode_attention"), (rl, "rg_lru"),
+            (gm, "grouped_matmul"))]
         for m, n, _ in self.saved:
             setattr(m, n, getattr(m, n + "_plain"))
 
@@ -514,54 +623,118 @@ class plain_versions:
             setattr(m, n, f)
 
 
+def model_vs_plain(dev, cfg, B, L, *, init_seed, prompt_seed, steps=8,
+                   cache_len=4096):
+    """Prefill of a B x L prompt + ``steps`` greedy decode steps through
+    the kernels, then the same tokens through the plain versions, on one set
+    of weights.
+
+    MoE layers: the plain run takes the experts the kernel run's router
+    picked (with gates from its own logits at those experts), so both runs
+    dispatch the same tokens to the same experts and differ only by
+    rounding. A token's experts are a discrete choice, and bf16 rounding
+    can flip a near-tie of the router; the flips are counted instead (the
+    tokens whose own top-k set in the plain run differs from the kernel
+    run's). Returns (logits per step through the kernels, through the plain
+    versions [steps + 1, B, V], flips per step summed over the MoE
+    layers)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as ly
+    model = build_model(cfg)
+    params = model.init(init_seed, dev)
+    rng = np.random.default_rng(prompt_seed)
+    prompt = torch.tensor(rng.integers(2, cfg.vocab, (B, L)), device=dev)
+    route = ly.moe_route
+
+    def run(tokens=None, forced=None):
+        picks, marks, flips = [], [], []
+
+        def recorded(p, x, c):
+            gates, idx = route(p, x, c)
+            if forced is not None:
+                own = idx.sort(-1).values
+                idx = forced[len(picks)]
+                flips.append(int((own != idx.sort(-1).values).any(-1).sum()))
+                gates = torch.softmax((x.float() @ p.router).gather(-1, idx),
+                                      dim=-1)
+            picks.append(idx)
+            return gates, idx
+
+        ly.moe_route = recorded
+        try:
+            logits, cache = model.prefill(params, prompt,
+                                          model.init_cache(B, cache_len, dev))
+            marks.append(len(picks))
+            out, toks = [logits[:, -1]], []
+            for i in range(steps):
+                tok = (logits[:, -1].argmax(-1) if tokens is None
+                       else tokens[i])[:, None]
+                toks.append(tok[:, 0])
+                logits, cache = model.decode_step(params, tok, cache, L + i)
+                marks.append(len(picks))
+                out.append(logits[:, -1])
+        finally:
+            ly.moe_route = route
+        per_step = [sum(flips[lo:hi]) for lo, hi in zip([0] + marks, marks)]
+        return torch.stack(out), toks, picks, per_step
+
+    got, toks, picks, _ = run()
+    with plain_versions():
+        want, _, _, flips = run(toks, forced=picks)
+    torch.cuda.synchronize()
+    return got, want, flips
+
+
+def hold_model(tag, got, want, flips, max_tol, rms_tol):
+    """Log each step's logit errors and fail when a limit is passed."""
+    errs = [relerr(g, w) for g, w in zip(got, want)]
+    rms = [float((g - w).float().square().mean().sqrt()
+                 / w.float().square().mean().sqrt()) for g, w in zip(got, want)]
+    top2 = want.topk(2, -1).values
+    margin = (top2[..., 0] - top2[..., 1]) > max_tol * want.abs().amax(-1)
+    agree = (got.argmax(-1) == want.argmax(-1)) | ~margin
+    finite = bool(torch.isfinite(got).all())
+    log(f"{tag}: logits relerr per step "
+        + " ".join(f"{e:.2e}" for e in errs)
+        + "; RMS relerr per step " + " ".join(f"{e:.2e}" for e in rms)
+        + f"; tokens whose own expert set differs per step {flips}"
+        + f"; greedy tokens agree where the top-2 margin exceeds the "
+        f"tolerance: {bool(agree.all())} ({int(margin.sum())}/{margin.numel()} "
+        f"such); finite {finite}")
+    if max(errs) > max_tol or max(rms) > rms_tol or not agree.all() or \
+            not finite:
+        raise SystemExit(f"{tag}: kernels and plain versions disagree")
+    return dict(relerr=errs, rms_relerr=rms, flips=flips)
+
+
 def check_model_vs_plain(dev):
     """RecurrentGemma-9B at full width, one group plus the tail (5 layers:
     rec rec attn rec rec): prefill of a 2,600-token prompt (past the 2,048
     window, so the ring cache is rolled) + 8 greedy decode steps through
     the kernels, then the same tokens through the plain versions."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=5)
-    model = build_model(cfg)
-    params = model.init(1, dev)
-    rng = np.random.default_rng(5)
-    B, L, steps = 2, 2600, 8
-    prompt = torch.tensor(rng.integers(2, cfg.vocab, (B, L)), device=dev)
+    B, L = 2, 2600
+    got, want, flips = model_vs_plain(dev, cfg, B, L, init_seed=1,
+                                      prompt_seed=5)
+    return hold_model(f"phase 10 model vs plain (5 layers, d 4096, B={B}, "
+                      f"L={L}, 8 decode steps)", got, want, flips, MODEL_TOL,
+                      MODEL_RMS_TOL)
 
-    def run(tokens=None):
-        logits, cache = model.prefill(params, prompt,
-                                      model.init_cache(B, 4096, dev))
-        out, toks = [logits[:, -1]], []
-        for i in range(steps):
-            tok = (logits[:, -1].argmax(-1) if tokens is None
-                   else tokens[i])[:, None]
-            toks.append(tok[:, 0])
-            logits, cache = model.decode_step(params, tok, cache, L + i)
-            out.append(logits[:, -1])
-        return torch.stack(out), toks
 
-    got, toks = run()
-    with plain_versions():
-        want, _ = run(toks)
-    torch.cuda.synchronize()
-    errs = [relerr(g, w) for g, w in zip(got, want)]
-    rms = [float((g - w).float().square().mean().sqrt()
-                 / w.float().square().mean().sqrt()) for g, w in zip(got, want)]
-    top2 = want.topk(2, -1).values
-    margin = (top2[..., 0] - top2[..., 1]) > MODEL_TOL * want.abs().amax(-1)
-    agree = (got.argmax(-1) == want.argmax(-1)) | ~margin
-    finite = bool(torch.isfinite(got).all())
-    log(f"phase 10 model vs plain (5 layers, d 4096, B={B}, L={L}, "
-        f"{steps} decode steps): logits relerr per step "
-        + " ".join(f"{e:.2e}" for e in errs)
-        + "; RMS relerr per step " + " ".join(f"{e:.2e}" for e in rms)
-        + f"; greedy tokens agree where the top-2 margin exceeds the "
-        f"tolerance: {bool(agree.all())} ({int(margin.sum())}/{margin.numel()} "
-        f"such); finite {finite}")
-    if max(errs) > MODEL_TOL or max(rms) > MODEL_RMS_TOL or \
-            not agree.all() or not finite:
-        raise SystemExit("model: kernels and plain versions disagree")
-    return max(errs)
+def check_qwen_vs_plain(dev):
+    """Qwen3-30B-A3B at full width, 4 layers: prefill at the serve path's
+    B = 4, L = 3,072 (expert capacity 240, so M = 960) + 8 greedy decode
+    steps (capacity 1) through the kernels, then through the plain
+    versions."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=4)
+    B, L = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    got, want, flips = model_vs_plain(dev, cfg, B, L, init_seed=1,
+                                      prompt_seed=7)
+    return hold_model(f"phase 15 qwen3-moe-30b-a3b vs plain (4 layers, d "
+                      f"2048, B={B}, L={L}, 8 decode steps)", got, want, flips,
+                      QWEN_TOL, QWEN_RMS_TOL)
 
 
 def kernel_group(name: str) -> str:
@@ -569,15 +742,18 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     for key, group in (("flash_kernel", "flash_attention"),
                        ("decode_kernel", "decode_attention"),
-                       ("rg_lru_kernel", "rg_lru")):
+                       ("rg_lru_kernel", "rg_lru"),
+                       ("gmm_kernel", "grouped_matmul")):
         if key in low:
             return group
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
         return "matmul"
+    if any(k in low for k in ("sort", "topk", "index", "scatter", "gather")):
+        return "indexing, sorts, top-k (MoE dispatch, embedding)"
     return "other (elementwise, norms, copies, reductions)"
 
 
-def profile_serve(dev):
+def profile_serve(dev, arch, phase):
     """Where the serve path's time goes at full width and depth: one
     prefill (B = 4, L = 3,072) and 8 decode steps (at positions 3,072 on),
     each timed once on the host clock without the profiler and once under
@@ -586,7 +762,7 @@ def profile_serve(dev):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    model = build_model(get_config("recurrentgemma-9b"))
+    model = build_model(get_config(arch))
     params = model.init(0, dev)
     B, L, steps = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"], 8
     prompt = torch.tensor(np.random.default_rng(6).integers(2, model.cfg.vocab,
@@ -630,7 +806,8 @@ def profile_serve(dev):
         for e in ev:
             g = kernel_group(e.key)
             groups[g] = groups.get(g, 0.0) + self_device_ms(e)
-        log(f"phase 11 profile serve {name} (per {'step' if per > 1 else 'call'}): "
+        log(f"phase {phase} profile serve {arch} {name} "
+            f"(per {'step' if per > 1 else 'call'}): "
             f"device {tot / per:.3f} ms, wall {bare / per:.3f} ms without the "
             f"profiler, {wall / per:.3f} ms under it; device idle share "
             f"{1 - tot / bare:.3f} (profiled device time over the unprofiled "
@@ -860,14 +1037,15 @@ def main() -> int:
     lm_t, lm_bounds = time_lm_kernels(dev)
 
     # -- 9. serve RecurrentGemma-9B at full width and depth ------------------------
-    res, serve_counts, n_prefill, n_decode, peak, wall = run_serve(dev)
+    res, serve_counts, n_prefill, n_decode, peak, wall = run_serve(
+        dev, "recurrentgemma-9b")
     log(f"phase 9 serve recurrentgemma-9b full: {json.dumps(res)}; "
         f"{n_prefill} prefills ({res['prefill_s'] / n_prefill:.3f} s each), "
         f"{n_decode} decode steps ({1e3 * res['decode_s'] / n_decode:.2f} ms "
         f"each), wall {wall:.1f} s incl. init, peak {peak:.2f} GiB; "
         f"launches {json.dumps(serve_counts)}")
     want_counts = dict(flash=12 * n_prefill, decode=12 * n_decode,
-                       rg_lru=26 * n_prefill)
+                       rg_lru=26 * n_prefill, gmm=0)
     if serve_counts != want_counts or res["requests_done"] != \
             SERVE_ARGS["requests"] or res["decode_tokens"] <= 0:
         raise SystemExit(f"serve: launches {serve_counts} (want "
@@ -877,7 +1055,46 @@ def main() -> int:
     check_model_vs_plain(dev)
 
     # -- 11. where the serve path's time goes ----------------------------------
-    profile_serve(dev)
+    profile_serve(dev, "recurrentgemma-9b", 11)
+
+    # -- 12. grouped matmul vs plain version ----------------------------------
+    log("phase 12 grouped matmul vs plain version (bf16, per output row)")
+    gmm_err, gmm_abs = check_gmm(dev)
+    if gmm_err > GMM_TOL:
+        raise SystemExit(f"grouped_matmul disagrees: {gmm_err:.2e}")
+
+    # -- 13. grouped matmul timing --------------------------------------------
+    gmm_t, gmm_bounds = time_gmm(dev)
+
+    # -- 14. serve Qwen3-30B-A3B at full width and depth ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 14 before loading qwen3-moe-30b-a3b: {free / 2 ** 30:.2f} of "
+        f"{total / 2 ** 30:.2f} GiB free")
+    qres, qwen_counts, q_prefill, q_decode, q_peak, q_wall = run_serve(
+        dev, "qwen3-moe-30b-a3b")
+    log(f"phase 14 serve qwen3-moe-30b-a3b full: {json.dumps(qres)}; "
+        f"{q_prefill} prefills ({qres['prefill_s'] / q_prefill:.3f} s each), "
+        f"{q_decode} decode steps ({1e3 * qres['decode_s'] / q_decode:.2f} ms "
+        f"each), wall {q_wall:.1f} s incl. init, peak {q_peak:.2f} GiB; "
+        f"launches {json.dumps(qwen_counts)}")
+    want_counts = dict(flash=48 * q_prefill, decode=48 * q_decode, rg_lru=0,
+                       gmm=144 * (q_prefill + q_decode))
+    if qwen_counts != want_counts or qres["requests_done"] != \
+            SERVE_ARGS["requests"] or qres["decode_tokens"] <= 0:
+        raise SystemExit(f"serve qwen: launches {qwen_counts} (want "
+                         f"{want_counts}), result {qres}")
+
+    # -- 15. 4-layer Qwen3-30B-A3B, kernels vs plain versions -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_qwen_vs_plain(dev)
+
+    # -- 16. where Qwen3-30B-A3B's serve time goes ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_serve(dev, "qwen3-moe-30b-a3b", 16)
 
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
@@ -923,6 +1140,22 @@ def main() -> int:
             ms=lm_t[f"{key}_ms"], plain_ms=lm_t[f"{key}_plain_ms"],
             **lm_bounds[key], library_ms=lm_t.get(f"{key}_sdpa_ms"),
             launch_floor_ms=lm_t[f"{key}_floor_ms"]))
+    kernels.append(dict(
+        name="grouped_matmul", route="cuda",
+        source="src/repro_torch/csrc/grouped_matmul.cu",
+        replaces="src/repro/kernels/grouped_matmul.py:35",
+        launches=qwen_counts["gmm"], max_abs_err=gmm_abs, relerr=gmm_err,
+        ms=gmm_t["prefill_up_ms"], plain_ms=gmm_t["prefill_up_plain_ms"],
+        **gmm_bounds["prefill_up"], library_ms=gmm_t["prefill_up_bmm_ms"],
+        launch_floor_ms=gmm_t["floor_ms"],
+        shapes={key: dict(ms=gmm_t[f"{key}_ms"],
+                          plain_ms=gmm_t[f"{key}_plain_ms"],
+                          library_ms=gmm_t[f"{key}_bmm_ms"], **gmm_bounds[key])
+                for key, *_ in GMM_PATH}))
+    for k in kernels:
+        if k["name"] in ("flash_attention", "decode_attention"):
+            k["qwen_launches"] = qwen_counts["flash" if k["name"] ==
+                                             "flash_attention" else "decode"]
     log(smi)                                # card name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,11 @@ kernel on CUDA.
 
 The fabric's main path runs ``time_flow_lookup`` and ``admission``; the
 language-model serving path runs ``flash_attention`` (prefill),
-``decode_attention`` (decode) and ``rg_lru`` (the RG-LRU scan at prefill).
+``decode_attention`` (decode), ``rg_lru`` (the RG-LRU scan at prefill) and
+``grouped_matmul`` (the MoE expert products).
 """
-from . import (admission, decode_attention, flash_attention, rg_lru,
-               time_flow_lookup)
+from . import (admission, decode_attention, flash_attention, grouped_matmul,
+               rg_lru, time_flow_lookup)
 
-__all__ = ["admission", "decode_attention", "flash_attention", "rg_lru",
-           "time_flow_lookup"]
+__all__ = ["admission", "decode_attention", "flash_attention",
+           "grouped_matmul", "rg_lru", "time_flow_lookup"]

@@ -4,8 +4,9 @@ Every assigned architecture is an ``ArchConfig``; the layer sequence is a
 repeating ``pattern`` of layer kinds (+ optional ``tail``). The port's
 stack runs it as a Python loop over layers; the knobs of the reference's
 compiled TPU stack (``remat``, ``attn_impl``, ``attn_bq``/``attn_bk``,
-``moe_chunk``, ``fsdp``, ``train_microbatches``) are kept so that a
-configuration reads the same in both packages, and the port ignores them.
+``fsdp``, ``train_microbatches``) are kept so that a configuration reads
+the same in both packages, and the port ignores them. ``moe_chunk``
+changes the MoE dispatch's capacity, so the port honours it.
 
 Layer kinds:
   dense   — GQA attention + (Sw/Ge)GLU MLP

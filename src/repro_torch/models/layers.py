@@ -7,10 +7,11 @@ The reference's layers compute attention and the RG-LRU scan in jnp
 implement the same math. The port's layers call the hand-written kernels at
 those places: :func:`attn_apply` runs ``kernels.flash_attention`` at
 prefill and ``kernels.decode_attention`` at decode, :func:`rglru_apply`
-runs ``kernels.rg_lru`` at prefill. On CPU tensors the kernels' plain
-versions run instead. The large projections (``x @ w``) are
-``torch.matmul``, as the reference leaves them to XLA; a bfloat16 product
-returns bfloat16, as in JAX.
+runs ``kernels.rg_lru`` at prefill, and :func:`moe_apply` runs the three
+expert products through ``kernels.grouped_matmul`` (the reference's
+einsums). On CPU tensors the kernels' plain versions run instead. The
+large projections (``x @ w``) are ``torch.matmul``, as the reference leaves
+them to XLA; a bfloat16 product returns bfloat16, as in JAX.
 
 Parameters keep the reference's names and dtypes (bfloat16 weights, float32
 norm scales and ``lam``), so :func:`repro_torch.models.params_from_numpy`
@@ -24,8 +25,10 @@ Where the port differs from the reference:
   it is given untouched.
 * the decode softmax weights stay in float32 for the product with V; the
   reference's einsum path rounds them to bfloat16 first.
-* cross-attention (``kv_src``), the MoE FFN and the xLSTM blocks are not
-  ported yet (ROADMAP Queue 1 item 10).
+* the MoE layer has no expert-parallel (``shard_map``) branch: the port
+  runs on one card.
+* cross-attention (``kv_src``) and the xLSTM blocks are not ported yet
+  (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from torch import nn
 
 from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
+from ..kernels import grouped_matmul as _gmm
 from ..kernels import rg_lru as _rg_lru
 from .config import ArchConfig
 
@@ -238,9 +242,9 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, window: int = 0,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, d_ff: int | None = None):
         super().__init__()
-        d, ff, bf = cfg.d_model, cfg.d_ff, torch.bfloat16
+        d, ff, bf = cfg.d_model, d_ff or cfg.d_ff, torch.bfloat16
         self.w_gate = _param((d, ff), bf, device)
         self.w_up = _param((d, ff), bf, device)
         self.w_down = _param((ff, d), bf, device)
@@ -257,6 +261,112 @@ def _act(cfg: ArchConfig, x):
 
 def mlp_apply(p: MLP, x, cfg: ArchConfig):
     return (_act(cfg, x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sorted capacity dispatch)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        m, bf = cfg.moe, torch.bfloat16
+        d, ff, E = cfg.d_model, m.expert_d_ff, m.num_experts
+        self.router = _param((d, E), torch.float32, device)
+        self.w_gate = _param((E, d, ff), bf, device)
+        self.w_up = _param((E, d, ff), bf, device)
+        self.w_down = _param((E, ff, d), bf, device)
+        self.shared = MLP(cfg, device, d_ff=m.shared_d_ff) if m.shared_d_ff \
+            else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # the reference's router is drawn at 0.02 in bfloat16 and kept in
+        # float32; its expert weights take the leading (expert) axis as the
+        # fan-in, 1/sqrt(E), a quirk the port keeps (ROADMAP Queue 3)
+        _normal_(self.router, gen, 0.02)
+        self.router.copy_(self.router.to(torch.bfloat16))
+        for w in (self.w_gate, self.w_up, self.w_down):
+            _dense_init_(w, gen)
+        if self.shared is not None:
+            self.shared.reset_parameters(gen)
+
+
+def moe_route(p: MoE, x, cfg: ArchConfig):
+    """The router: float32 logits, top-k experts in descending order of
+    logit, and a softmax over the k values. x: [..., d] -> (gates [..., k]
+    float32, expert ids [..., k] int64)."""
+    vals, idx = torch.topk(x.float() @ p.router, cfg.moe.top_k, dim=-1)
+    return torch.softmax(vals, dim=-1), idx
+
+
+def moe_apply(p: MoE, x, cfg: ArchConfig):
+    """Token-sorted capacity dispatch, as ``repro.models.layers.moe_apply``
+    without its expert-parallel branch. x: [B, L, d] -> [B, L, d].
+
+    With L > 1 each row of the batch (or each ``moe_chunk`` of a row)
+    dispatches on its own, with a capacity of ``ceil(L k / E * factor)``
+    per expert; at decode (L == 1) the batch's tokens dispatch together.
+    """
+    B, L, d = x.shape
+    if L == 1:
+        out = _moe_dispatch(p, x.reshape(1, B, d), cfg)
+    else:
+        xr = x
+        if cfg.moe_chunk and L > cfg.moe_chunk and L % cfg.moe_chunk == 0:
+            xr = x.reshape(B * (L // cfg.moe_chunk), cfg.moe_chunk, d)
+        out = _moe_dispatch(p, xr, cfg)
+    out = out.reshape(B, L, d)
+    if p.shared is not None:
+        out = out + mlp_apply(p.shared, x, cfg)
+    return out
+
+
+def _moe_dispatch(p: MoE, x, cfg: ArchConfig):
+    """Sorted capacity dispatch of each of the R rows of x: [R, T, d].
+
+    The reference's ``_moe_dispatch_batched`` (rows of the batch) and its
+    ``_moe_dispatch`` (the decode batch as one row) in one: assignments are
+    sorted stably by expert, the first C of each expert in a row are kept,
+    the rest dropped. Kept tokens are scattered into an [E, R, C, d] buffer
+    (one trash row takes the dropped ones), so the expert GLU is three
+    grouped matmuls of G = E groups and M = R * C rows; rows of the batch
+    never mix, as in the reference's [R, E, C, d] einsums. The combine adds
+    each slot's output, times its gate in the working dtype, into its
+    token's row in slot order, which for a token is ascending expert order
+    as in the reference. Everything stays on the device.
+    """
+    R, T, d = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    C = int(max(1, math.ceil(T * K / E * m.capacity_factor)))
+    gates, idx = moe_route(p, x, cfg)                     # [R, T, K]
+    ids = idx.reshape(R, T * K)
+    order = torch.argsort(ids, dim=1, stable=True)
+    ids_s = torch.gather(ids, 1, order)
+    gate_s = torch.gather(gates.reshape(R, T * K), 1, order)
+    pos = (torch.arange(T * K, device=x.device)
+           - torch.searchsorted(ids_s, ids_s))            # place in expert
+    keep = pos < C
+    row = torch.arange(R, device=x.device)[:, None]
+    n_slots = E * R * C                                   # + 1 trash slot
+    slot = torch.where(keep, (ids_s * R + row) * C + pos, n_slots).reshape(-1)
+    src = (row * T + order // K).reshape(-1)              # token of x's rows
+
+    xe = x.new_zeros(n_slots + 1, d)
+    xe[slot] = x.reshape(R * T, d)[src]
+    xe = xe[:-1].view(E, R * C, d)
+    h = _act(cfg, _gmm.grouped_matmul(xe, p.w_gate)) * \
+        _gmm.grouped_matmul(xe, p.w_up)
+    ye = _gmm.grouped_matmul(h, p.w_down).view(n_slots, d)
+
+    # slot -> token row (R * T, the trash row, for empty slots) and gate
+    tok = torch.full((n_slots + 1,), R * T, dtype=torch.int64, device=x.device)
+    tok[slot] = src
+    gate = torch.zeros(n_slots + 1, dtype=torch.float32, device=x.device)
+    gate[slot] = gate_s.reshape(-1)
+    out = ye.new_zeros(R * T + 1, d)
+    out.index_add_(0, tok[:-1], ye * gate[:-1, None].to(ye.dtype))
+    return out[:-1].view(R, T, d)
 
 
 # ---------------------------------------------------------------------------

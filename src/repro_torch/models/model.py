@@ -23,8 +23,6 @@ from .config import ArchConfig
 # layer kinds and model features this slice does not port, with the
 # ROADMAP item that does
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 10, with the grouped_matmul kernel of "
-           "Queue 2 item 5",
     "mlstm": "ROADMAP Queue 1 item 10 (xLSTM blocks)",
     "slstm": "ROADMAP Queue 1 item 10 (xLSTM blocks)",
     "enc": "ROADMAP Queue 1 item 10 (encoder-decoder models)",

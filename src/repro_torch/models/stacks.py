@@ -9,8 +9,8 @@ Two entry points share the layer code, as in ``repro.models.stacks``:
   ``decode_step``  one token against the caches / recurrent states
 
 A cache is a list with one entry per layer, in layer order: an
-``AttnCache`` for an attention layer, ``(state, conv_state)`` for a ``rec``
-layer. Every tensor of it has the batch on axis 0.
+``AttnCache`` for an attention or ``moe`` layer, ``(state, conv_state)``
+for a ``rec`` layer. Every tensor of it has the batch on axis 0.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from torch import nn
 from . import layers as ly
 from .config import ArchConfig
 
-ATTN_KINDS = {"dense", "local", "global", "attn"}
+ATTN_KINDS = {"dense", "local", "global", "attn", "moe"}
 PORTED_KINDS = ATTN_KINDS | {"rec"}
 
 
@@ -44,12 +44,16 @@ class Layer(nn.Module):
         else:
             self.attn = ly.Attention(cfg, device)
         self.norm2 = ly.Norm(cfg, cfg.d_model, device)
-        self.mlp = ly.MLP(cfg, device)
+        if kind == "moe":
+            self.moe = ly.MoE(cfg, device)
+        else:
+            self.mlp = ly.MLP(cfg, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        # the reference's order: the mixer, then the MLP
+        # the reference's order: the mixer, then the MLP or the experts
         mixer = self.rglru if self.kind == "rec" else self.attn
-        for m in (self.norm1, mixer, self.norm2, self.mlp):
+        ffn = self.moe if self.kind == "moe" else self.mlp
+        for m in (self.norm1, mixer, self.norm2, ffn):
             m.reset_parameters(gen)
 
 
@@ -92,13 +96,15 @@ def _layer_apply(layer: Layer, x, cfg: ArchConfig, positions, cache,
                               positions=positions, window=window,
                               cache=cache, write_index=write_index)
     x = x + y
-    x = x + ly.mlp_apply(layer.mlp, layer.norm2(x), cfg)
+    h = layer.norm2(x)
+    x = x + (ly.moe_apply(layer.moe, h, cfg) if layer.kind == "moe"
+             else ly.mlp_apply(layer.mlp, h, cfg))
     return x, nc
 
 
 def _layer_cache(kind: str, cfg: ArchConfig, batch: int, seq_len: int,
                  device):
-    if kind in ("dense", "global"):
+    if kind in ("dense", "global", "moe"):
         return ly.make_cache(cfg, batch, seq_len, device=device)
     if kind in ("local", "attn"):
         return ly.make_cache(cfg, batch, seq_len, window=cfg.window,

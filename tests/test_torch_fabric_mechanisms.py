@@ -12,7 +12,8 @@ pytest.importorskip("torch")
 import repro.core as R  # noqa: E402
 import repro_torch.core as Q  # noqa: E402
 
-from torch_parity import assert_sim_equal, simulate_both  # noqa: E402
+from torch_parity import (  # noqa: E402, F401
+    assert_sim_equal, simulate_both, release_compiled_programs)
 
 N = 8
 SLICES = 48

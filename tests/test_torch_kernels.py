@@ -18,6 +18,7 @@ from repro.kernels import ops as R_ops  # noqa: E402
 from repro_torch.core import fabric as Q_fabric  # noqa: E402
 from repro_torch.kernels import admission as Q_adm  # noqa: E402
 from repro_torch.kernels import time_flow_lookup as Q_tfl  # noqa: E402
+from torch_parity import release_compiled_programs  # noqa: E402, F401
 
 
 def _t32(a):

@@ -6,10 +6,13 @@ Every comparison runs the reference's parameters, carried over by
 
 * each layer (norms, rope, attention at prefill for each cache branch and
   at decode over a ring buffer, the GLU MLP, the RG-LRU block at prefill and
-  decode) against ``repro.models.layers``;
+  decode, the MoE layer at prefill with dropped assignments, with
+  ``moe_chunk``, at decode and with a shared expert) against
+  ``repro.models.layers``;
 * ``prefill`` + 8 ``decode_step``s of ``recurrentgemma-9b``, ``gemma2-9b``
-  (softcap, local/global) and ``olmo-1b`` (``layernorm_np``; GQA as
-  ``reduced()`` makes it, and MHA) at ``cfg.reduced()`` against
+  (softcap, local/global), ``olmo-1b`` (``layernorm_np``; GQA as
+  ``reduced()`` makes it, and MHA), ``qwen3-moe-30b-a3b`` and
+  ``llama4-scout-17b-a16e`` (MoE) at ``cfg.reduced()`` against
   ``repro.models.Model``;
 * ``serve`` with ``requests <= batch`` against the reference's counts, and
   the port's slot refill (which the reference gets wrong, see
@@ -47,6 +50,7 @@ from repro_torch.models import count_params as Q_count  # noqa: E402
 from repro_torch.models import layers as Q_ly  # noqa: E402
 from repro_torch.models import model_flops as Q_flops  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
+from torch_parity import release_compiled_programs  # noqa: E402, F401
 
 LAYER_TOL = {"f32": 2e-5, "bf16": 2e-2}
 MODEL_TOL = {"f32": 1e-4, "bf16": 6e-2}
@@ -235,6 +239,62 @@ def test_rglru_prefill_and_decode_match_reference(dt, L):
     assert qs.dtype == torch.float32 and qcs.dtype == TORCH[dt]
 
 
+def _dropped(qm, x, cfg):
+    """Assignments the capacity drops when the rows of x [R, T, d] are
+    dispatched (computed from the port's router)."""
+    R, T, _ = x.shape
+    m = cfg.moe
+    C = max(1, int(np.ceil(T * m.top_k / m.num_experts * m.capacity_factor)))
+    _, idx = Q_ly.moe_route(qm, x, cfg)
+    counts = torch.nn.functional.one_hot(idx.reshape(R, -1),
+                                         m.num_experts).sum(1)
+    return int((counts - C).clamp(min=0).sum())
+
+
+# (arch, overrides of reduced(), B, L, rows as dispatched)
+MOE_CASES = {
+    "prefill-drops": ("qwen3-moe-30b-a3b", {}, 2, 24, lambda B, L: (B, L)),
+    "moe-chunk": ("qwen3-moe-30b-a3b", dict(moe_chunk=8), 2, 24,
+                  lambda B, L: (B * L // 8, 8)),
+    "decode": ("qwen3-moe-30b-a3b", {}, 6, 1, lambda B, L: (1, B)),
+    "shared": ("llama4-scout-17b-a16e", {}, 2, 24, lambda B, L: (B, L)),
+}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_matches_reference(case, dt):
+    """The MoE layer against the reference's ``moe_apply``. The tokens
+    share a component, so the router favours some experts and the capacity
+    drops assignments in every case (asserted)."""
+    arch, over, B, L, rows = MOE_CASES[case]
+    cfg, rp, qp = carried(arch, dt, **over)
+    rl, ql = group_layer(cfg, rp, qp, 0)
+    rng = np.random.default_rng(10)
+    xj, xt = both(rng.normal(size=(B, L, 64)) + 2 * rng.normal(size=64), dt)
+    assert _dropped(ql.moe, xt.reshape(*rows(B, L), 64), cfg) > 0
+    want = R_ly.moe_apply(rl["moe"], xj, cfg)
+    got = Q_ly.moe_apply(ql.moe, xt, cfg)
+    assert got.dtype == TORCH[dt] and tuple(got.shape) == (B, L, 64)
+    assert relerr(got, want) < LAYER_TOL[dt]
+
+
+def test_moe_route_orders_experts_by_logit():
+    """``torch.topk`` gives the experts in descending order of logit, as
+    ``jax.lax.top_k`` does: the order feeds the stable sort of the
+    dispatch."""
+    cfg, rp, qp = carried("qwen3-moe-30b-a3b", "f32")
+    rl, ql = group_layer(cfg, rp, qp, 0)
+    x = np.random.default_rng(11).normal(size=(3, 7, 64)).astype(np.float32)
+    gates, idx = Q_ly.moe_route(ql.moe, torch.tensor(x), cfg)
+    logits = jnp.asarray(x) @ rl["moe"]["router"]
+    vals, want = jax.lax.top_k(logits, cfg.moe.top_k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+    np.testing.assert_allclose(gates.numpy(),
+                               np.asarray(jax.nn.softmax(vals, -1)), rtol=1e-6)
+    assert (gates[..., :-1] >= gates[..., 1:]).all()
+
+
 # ---------------------------------------------------------------------------
 # whole models
 # ---------------------------------------------------------------------------
@@ -246,17 +306,71 @@ def _float_cache(cache):
 
 
 MODEL_CASES = [("recurrentgemma-9b", {}), ("gemma2-9b", {}), ("olmo-1b", {}),
-               ("olmo-1b", dict(n_kv_heads=4))]
+               ("olmo-1b", dict(n_kv_heads=4)), ("qwen3-moe-30b-a3b", {}),
+               ("llama4-scout-17b-a16e", {})]
+
+
+class _Routes:
+    """Records, per model step, the expert set each MoE layer picks for
+    each token, in the reference (through a debug callback, so it stays
+    jitted) and in the port."""
+
+    def __init__(self, monkeypatch):
+        self.ref, self.port, self.steps = [], [], []
+        r_apply, q_route = R_ly.moe_apply, Q_ly.moe_route
+
+        def ref_apply(p, x, cfg):
+            idx = jax.lax.top_k(x.astype(jnp.float32) @ p["router"],
+                                cfg.moe.top_k)[1]
+            jax.debug.callback(lambda i: self.ref.append(np.asarray(i)), idx,
+                               ordered=True)
+            return r_apply(p, x, cfg)
+
+        def port_route(p, x, cfg):
+            gates, idx = q_route(p, x, cfg)
+            self.port.append(idx.numpy())
+            return gates, idx
+
+        monkeypatch.setattr(R_ly, "moe_apply", ref_apply)
+        monkeypatch.setattr(Q_ly, "moe_route", port_route)
+
+    def mark(self):
+        """Close a step: the records since the last mark belong to it."""
+        jax.effects_barrier()
+        self.steps.append((len(self.ref), len(self.port)))
+
+    def first_flip(self) -> int:
+        """The first step at which some token's expert set differs between
+        the two packages (the number of steps if none does)."""
+        sets = lambda a: np.sort(np.concatenate(
+            [x.reshape(-1, x.shape[-1]) for x in a] or [np.zeros((0, 1))]), -1)
+        lo = (0, 0)
+        for i, hi in enumerate(self.steps):
+            r, q = sets(self.ref[lo[0]:hi[0]]), sets(self.port[lo[1]:hi[1]])
+            if r.shape != q.shape or not np.array_equal(r, q):
+                return i
+            lo = hi
+        return len(self.steps)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("arch,over", MODEL_CASES,
-                         ids=["recurrentgemma", "gemma2", "olmo", "olmo-mha"])
-def test_prefill_and_decode_match_reference(arch, over, dt):
+                         ids=["recurrentgemma", "gemma2", "olmo", "olmo-mha",
+                              "qwen3-moe", "llama4-moe"])
+def test_prefill_and_decode_match_reference(arch, over, dt, monkeypatch):
     """A 20-token prefill into a 32-slot cache (local layers: a 16-slot
     ring, rolled; global layers: scattered), then 8 decode steps on given
     tokens. Logits agree within the tolerance, and so do the greedy tokens
-    wherever the reference's top-2 margin exceeds it."""
+    wherever the reference's top-2 margin exceeds it.
+
+    MoE models: a token's experts are a discrete choice, and in bfloat16 the
+    two packages' hidden states differ by rounding, so a near-tie of the
+    router can pick another expert in one of them (at decode, with a
+    capacity of 1, that also changes which token is dropped). From the
+    first step where the expert sets differ on, the logits may differ by
+    more than rounding: they are held up to that step, and in float32 no
+    expert set may differ at all."""
+    routes = _Routes(monkeypatch)
     cfg, rp, qp = carried(arch, dt, **over)
     rm, qm = R_build(cfg), Q_build(Q_get_config(arch).reduced(**over))
     B, L, S = 2, 20, 32
@@ -269,15 +383,20 @@ def test_prefill_and_decode_match_reference(arch, over, dt):
         qc = _float_cache(qc)
     rl, rc = jax.jit(rm.prefill)(rp, jnp.asarray(toks[:, :L]), rc)
     ql, qc = qm.prefill(qp, torch.tensor(toks[:, :L]), qc)
+    routes.mark()
     want, got = [np.asarray(rl)], [ql.numpy()]
     step = jax.jit(rm.decode_step)
     for t in range(L, L + 8):
         rl, rc = step(rp, jnp.asarray(toks[:, t:t + 1]), rc, jnp.int32(t))
         ql, qc = qm.decode_step(qp, torch.tensor(toks[:, t:t + 1]), qc, t)
+        routes.mark()
         want.append(np.asarray(rl))
         got.append(ql.numpy())
     want, got = np.stack(want), np.stack(got)          # [9, B, 1, V]
     assert got.dtype == np.float32 and got.shape == want.shape
+    n = routes.first_flip()
+    assert n == 9 or (dt == "bf16" and n > 0), n
+    want, got = want[:n], got[:n]
     tol = MODEL_TOL[dt]
     for w, g in zip(want, got):
         assert relerr(g, w) < tol
@@ -295,19 +414,34 @@ SERVE_KW = dict(arch="recurrentgemma-9b", preset="tiny", requests=3, batch=4,
                 prompt_len=24, max_new=8, cache_len=64)
 
 
-def test_serve_matches_reference_counts(monkeypatch):
-    """``requests <= batch``: no refill. With the reference's weights (from
-    the same seed, carried over) both serve the same requests and decode
-    the same number of tokens, in the same dict. Both count the slot padded
-    with a zero prompt as a served request: 4 for 3 requests (ROADMAP
-    Queue 3 records this quirk of the reference's scheduler, which the port
-    keeps)."""
-    want = R_serve(**SERVE_KW)
-    cfg = R_get_config(SERVE_KW["arch"]).reduced(vocab=512)
+def _serve_both(monkeypatch, **kw):
+    """(reference's serve dict, port's) with the reference's weights (from
+    the same seed, carried over)."""
+    want = R_serve(**kw)
+    cfg = R_get_config(kw["arch"]).reduced(vocab=512)
     tree = to_numpy(R_build(cfg).init(jax.random.PRNGKey(0)))
     monkeypatch.setattr(Q_Model, "init", lambda self, seed=0, device=None:
                         params_from_numpy(self.cfg, tree, device))
-    got = Q_serve.serve(**SERVE_KW, device="cpu")
+    return want, Q_serve.serve(**kw, device="cpu")
+
+
+def test_serve_matches_reference_counts(monkeypatch):
+    """``requests <= batch``: no refill. Both serve the same requests and
+    decode the same number of tokens, in the same dict. Both count the slot
+    padded with a zero prompt as a served request: 4 for 3 requests
+    (ROADMAP Queue 3 records this quirk of the reference's scheduler, which
+    the port keeps)."""
+    want, got = _serve_both(monkeypatch, **SERVE_KW)
+    assert got.keys() == want.keys()
+    assert got["requests_done"] == want["requests_done"] == 4
+    assert got["decode_tokens"] == want["decode_tokens"] > 0
+
+
+def test_serve_moe_matches_reference_counts(monkeypatch):
+    """The same for the MoE model, whose decode steps dispatch the batch's
+    tokens together."""
+    want, got = _serve_both(monkeypatch, **dict(SERVE_KW,
+                                                arch="qwen3-moe-30b-a3b"))
     assert got.keys() == want.keys()
     assert got["requests_done"] == want["requests_done"] == 4
     assert got["decode_tokens"] == want["decode_tokens"] > 0
@@ -407,8 +541,7 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     assert model.init(0, device="cpu").embed.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
-                                  "xlstm-350m", "seamless-m4t-large-v2",
+@pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2",
                                   "llava-next-34b"])
 def test_unported_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -449,6 +582,68 @@ def test_init_matches_count_and_distributions(arch):
             assert abs(layer.rglru.conv.float().std().item() - 0.1) < 0.02
     again = Q_build(cfg).init(0, device="cpu")
     assert torch.equal(params.layers[-1].mlp.w_down, again.layers[-1].mlp.w_down)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
+def test_moe_builds_at_full_size_without_weights(arch):
+    model = Q_build(Q_get_config(arch))
+    assert model.cfg.pattern == ("moe",)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
+def test_moe_init_matches_count_and_distributions(arch):
+    """Router at 0.02, drawn in bfloat16 and kept in float32; expert weights
+    at 1/sqrt(E), the reference's leading-axis fan-in; a shared expert (and
+    the attention) at 1/sqrt(d)."""
+    cfg = Q_get_config(arch).reduced(d_model=256, head_dim=64, vocab=2048)
+    params = Q_build(cfg).init(0, device="cpu")
+    n = {name: p.numel() for name, p in params.named_parameters()}
+    norms = sum(v for k, v in n.items() if k.endswith(("scale", "_norm")))
+    assert sum(n.values()) - norms == Q_count(cfg)
+    E = cfg.moe.num_experts
+    for layer in params.layers:
+        moe = layer.moe
+        assert moe.router.dtype == torch.float32
+        assert torch.equal(moe.router, moe.router.bfloat16().float())
+        assert abs(moe.router.std().item() - 0.02) < 0.05 * 0.02
+        for w in (moe.w_gate, moe.w_up, moe.w_down):
+            assert w.dtype == torch.bfloat16
+            assert abs(w.float().std().item() - E ** -0.5) < 0.05 * E ** -0.5
+        assert (moe.shared is not None) == bool(cfg.moe.shared_d_ff)
+        if moe.shared is not None:
+            w = moe.shared.w_gate.float()
+            assert tuple(w.shape) == (256, cfg.moe.shared_d_ff)
+            assert abs(w.std().item() - 256 ** -0.5) < 0.05 * 256 ** -0.5
+    again = Q_build(cfg).init(0, device="cpu")
+    assert torch.equal(params.layers[-1].moe.w_down,
+                       again.layers[-1].moe.w_down)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
+def test_params_from_numpy_carries_moe_tree(arch):
+    """``groups.moe0.moe.{router, w_gate, w_up, w_down[, shared.*]}`` land
+    in each layer's ``moe`` module, unstacked by group; a leaf of the wrong
+    shape is refused."""
+    cfg = R_get_config(arch).reduced()
+    tree = to_numpy(R_build(cfg).init(jax.random.PRNGKey(0)))
+    qcfg = Q_get_config(arch).reduced()
+    params = params_from_numpy(qcfg, tree, device="cpu")
+    sub = tree["groups"]["moe0"]["moe"]
+    names = {"router", "w_gate", "w_up", "w_down"} | (
+        {"shared"} if cfg.moe.shared_d_ff else set())
+    assert set(sub) == names
+    for g in range(cfg.n_groups):
+        moe = params.layers[g].moe
+        for name in ("router", "w_gate", "w_up", "w_down"):
+            np.testing.assert_array_equal(getattr(moe, name).float().numpy(),
+                                          sub[name][g])
+        if moe.shared is not None:
+            np.testing.assert_array_equal(moe.shared.w_down.float().numpy(),
+                                          sub["shared"]["w_down"][g])
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["groups"]["moe0"]["moe"]["w_up"] = sub["w_up"][:, :, :, :32]
+    with pytest.raises(ValueError, match="w_up"):
+        params_from_numpy(qcfg, bad, device="cpu")
 
 
 def test_params_from_numpy_rejects_a_mismatched_tree():

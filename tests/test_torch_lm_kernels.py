@@ -1,16 +1,18 @@
 """The port's language-model kernels on the CPU: the plain versions of
-``flash_attention``, ``decode_attention`` and ``rg_lru`` against the Pallas
-kernels (interpret mode, through ``repro.kernels.ops`` as
-``tests/test_kernels.py`` calls them) and the ``repro.kernels.ref``
+``flash_attention``, ``decode_attention``, ``rg_lru`` and ``grouped_matmul``
+against the Pallas kernels (interpret mode, through ``repro.kernels.ops``
+as ``tests/test_kernels.py`` calls them) and the ``repro.kernels.ref``
 oracles, over the sweeps of ``test_kernels.py`` plus ragged lengths, a
-wrapped ring buffer and empty cache slots.
+wrapped ring buffer, empty cache slots and the MoE path's M = 1.
 
 Tolerances are those of ``test_kernels.py``: relative error (max |a - b| /
 max |b|) 2e-5 in float32 and 2e-2 in bfloat16, 1e-4 for the RG-LRU scan
 (the plain version walks time in order, the reference scans
-associatively). The CUDA kernels are held against these plain versions on
-the card by ``chip_smoke.py``, which also runs their tile edges (skipped
-key tiles, ragged tails, ``q_offset``, empty caches).
+associatively); the grouped matmul is held to 2e-5 / 2e-2 without the
+``sqrt(K)`` factor ``test_kernels.py`` allows it. The CUDA kernels are held
+against these plain versions on the card by ``chip_smoke.py``, which also
+runs their tile edges (skipped key tiles, ragged tails, ``q_offset``, empty
+caches, ragged M, N and K).
 """
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as R_ops  # noqa: E402
 from repro_torch.kernels import decode_attention as Q_da  # noqa: E402
 from repro_torch.kernels import flash_attention as Q_fa  # noqa: E402
+from repro_torch.kernels import grouped_matmul as Q_gmm  # noqa: E402
 from repro_torch.kernels import rg_lru as Q_rl  # noqa: E402
+from torch_parity import release_compiled_programs  # noqa: E402, F401
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -194,3 +198,39 @@ def test_rg_lru_plain_matches_pallas_and_ref(B, L, W, bl, bw):
     assert port.dtype == torch.float32 and port.shape == (B, L, W)
     assert relerr(port, pallas) < 1e-4
     assert relerr(port, ref) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# grouped_matmul
+# ---------------------------------------------------------------------------
+
+def _gmm_case(dt, G, M, K, N, pallas_kw=None):
+    rng = np.random.default_rng(G + M + K + N)
+    xj, xt = both(rng.normal(size=(G, M, K)), dt)
+    wj, wt = both(rng.normal(size=(G, K, N)), dt)
+    port = Q_gmm.grouped_matmul(xt, wt)
+    assert port.dtype == TORCH[dt] and port.shape == (G, M, N)
+    assert relerr(port, R_ops.grouped_matmul(xj, wj, impl="ref")) < TOL[dt]
+    if pallas_kw is not None:
+        assert relerr(port, R_ops.grouped_matmul(xj, wj, **pallas_kw)) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("G,M,K,N", [
+    (2, 128, 512, 128),
+    (4, 256, 256, 256),
+    (8, 128, 1024, 128),
+])
+def test_grouped_matmul_plain_matches_pallas_and_ref(dt, G, M, K, N):
+    _gmm_case(dt, G, M, K, N, pallas_kw=dict(bm=128, bn=128, bk=256))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("G,M,K,N", [
+    (16, 1, 256, 96),       # decode: one capacity row per expert
+    (1, 96, 128, 64),       # one group
+    (3, 33, 100, 72),       # M, K, N no tile divides
+], ids=["M1", "G1", "ragged"])
+def test_grouped_matmul_plain_matches_ref(dt, G, M, K, N):
+    # the Pallas kernel needs M divisible by its tile, so only the oracle
+    _gmm_case(dt, G, M, K, N)

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that no parity test covers:
 
-* no module of ``src/repro_torch/``, nor ``chip_smoke.py`` or the port's
-  example, imports ``jax``, ``repro`` or ``networkx`` (the card's machine
-  has none of them), and the package imports with all three blocked;
+* no module of ``src/repro_torch/``, nor ``chip_smoke.py``,
+  ``chip_fault_probe.py`` or the port's example, imports ``jax``,
+  ``repro`` or ``networkx`` (the card's machine has none of them), and the
+  package imports with all three blocked;
 * entry points run on CUDA unless told otherwise: without a card and
   without ``device="cpu"`` they raise, never quietly run on the CPU (the
   language-model entry points are checked in ``test_torch_lm.py``);
@@ -27,13 +28,15 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import admission as Q_adm  # noqa: E402
 from repro_torch.kernels import decode_attention as Q_da  # noqa: E402
 from repro_torch.kernels import flash_attention as Q_fa  # noqa: E402
+from repro_torch.kernels import grouped_matmul as Q_gmm  # noqa: E402
 from repro_torch.kernels import rg_lru as Q_rl  # noqa: E402
 from repro_torch.kernels import time_flow_lookup as Q_tfl  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro", "networkx"}
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-              + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"])
+              + [ROOT / "chip_smoke.py", ROOT / "chip_fault_probe.py",
+                 ROOT / "examples" / "quickstart_torch.py"])
 
 
 def _imported_roots(path: Path) -> set:
@@ -174,6 +177,7 @@ def no_kernel_library(monkeypatch, tmp_path):
     monkeypatch.setattr(Q_fa, "flash_attention_plain", plain)
     monkeypatch.setattr(Q_da, "decode_attention_plain", plain)
     monkeypatch.setattr(Q_rl, "rg_lru_plain", plain)
+    monkeypatch.setattr(Q_gmm, "grouped_matmul_plain", plain)
 
 
 def test_wrappers_raise_without_kernel_library(monkeypatch, no_kernel_library):
@@ -247,6 +251,42 @@ def test_lm_wrappers_validate_kernel_inputs():
             Q_rl._check(*args)
 
 
+def _gmm_args(device, dtype=torch.bfloat16):
+    return (torch.zeros(3, 5, 24, dtype=dtype, device=device),
+            torch.zeros(3, 24, 16, dtype=dtype, device=device))
+
+
+def test_grouped_matmul_raises_without_kernel_library(monkeypatch,
+                                                      no_kernel_library):
+    monkeypatch.setattr(Q_gmm, "_require_cuda", lambda *a: None)
+    count = Q_gmm.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        Q_gmm.grouped_matmul(*_gmm_args("meta"))
+    assert Q_gmm.launches == count
+
+
+def test_grouped_matmul_refuses_non_cuda_devices(no_kernel_library):
+    with pytest.raises(ValueError, match="CUDA"):
+        Q_gmm.grouped_matmul(*_gmm_args("meta"))
+
+
+def test_grouped_matmul_validates_kernel_inputs():
+    x, w = _gmm_args("cpu")
+    Q_gmm._check(x, w)
+    bad = [
+        (x, w[:2]),                                     # groups differ
+        (x, w[:, :20]),                                 # K differs
+        (x[0], w[0]),                                   # not grouped
+        (x.transpose(1, 2).contiguous().transpose(1, 2), w),   # layout
+        (x, w.half()),                                  # w dtype
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            Q_gmm._check(*args)
+    with pytest.raises(ValueError, match="float32"):
+        Q_gmm._check(*_gmm_args("cpu", torch.float32))
+
+
 def test_wrappers_refuse_non_cuda_devices(no_kernel_library):
     with pytest.raises(ValueError, match="CUDA"):
         Q_tfl.time_flow_lookup(*_lookup_args("meta"))
@@ -301,4 +341,4 @@ def test_library_name_follows_source(monkeypatch, tmp_path):
     assert _build.library_path("k") != first
     assert {p.stem for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")} \
         == {"time_flow_lookup", "admission", "flash_attention",
-            "decode_attention", "rg_lru"}
+            "decode_attention", "rg_lru", "grouped_matmul"}

@@ -1,11 +1,16 @@
-"""Shared helpers of the PyTorch port's fabric parity suites
-(``test_torch_fabric.py``, ``test_torch_fabric_mechanisms.py``): carry the
+"""Shared helpers of the PyTorch port's parity suites: carry the
 reference's deployed state and workload over to the port, run both
-simulators, and compare the results field for field, values and dtypes.
+simulators, and compare the results field for field, values and dtypes
+(``test_torch_fabric.py``, ``test_torch_fabric_mechanisms.py``); and
+``release_compiled_programs``, which every port suite that compiles JAX
+programs imports.
 """
 import dataclasses
+import gc
 
+import jax
 import numpy as np
+import pytest
 
 import repro.core as R
 import repro_torch.core as Q
@@ -38,3 +43,17 @@ def simulate_both(tables, wl, num_slices, **cfg):
     qt, qw = carry(tables, wl)
     port = Q.simulate(qt, qw, Q.FabricConfig(**cfg), num_slices, device="cpu")
     return ref, port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_compiled_programs():
+    """Drop JAX's caches when a module that imports this fixture starts and
+    ends. Every cached XLA CPU executable keeps memory mappings; a test
+    worker that keeps all of the suite's programs cached runs into the
+    kernel's limit on mappings (``vm.max_map_count``), and XLA then crashes
+    with a segfault in a later compile."""
+    jax.clear_caches()
+    gc.collect()
+    yield
+    jax.clear_caches()
+    gc.collect()
