@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Fault probe of ``chip_smoke.py``'s grouped matmul checks, on one CUDA card.
+"""Fault probe of ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
     python3 chip_fault_probe.py
 
-Shows whether the limits of phase 12 (the grouped matmul kernel against its
-plain version, per output row) and of phase 15 (a 4-layer full-width
-Qwen3-30B-A3B through the kernels against the plain versions) catch a wrong
-kernel. For the unchanged tree and for each planted fault, ``src/`` and
+Shows whether the limits of phase 7 (flash-decode against its plain
+version, per output row), phase 12 (the grouped matmul against its plain
+version, per output row) and phase 15 (a 4-layer full-width Qwen3-30B-A3B
+through the kernels against the plain versions) catch a wrong kernel. For
+the unchanged tree and for each planted fault, ``src/`` and
 ``chip_smoke.py`` are copied into a temporary directory, the fault is
-planted by an exact text substitution in
-``src/repro_torch/csrc/grouped_matmul.cu``, and the two checks run there in
-a subprocess; their output is printed, tagged with the fault. Exits
-non-zero when a sound check fails, or when a faulty kernel passes phase 12.
+planted by an exact text substitution in one CUDA source, and the three
+checks run there in a subprocess; their output is printed, tagged with the
+fault. Exits non-zero when a sound check fails, or when a faulty kernel
+passes every phase named for it.
 """
 from __future__ import annotations
 
+import re
 import shutil
 import subprocess
 import sys
@@ -22,16 +24,32 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = Path("src/repro_torch/csrc/grouped_matmul.cu")
+CSRC = Path("src/repro_torch/csrc")
+GMM, DECODE = CSRC / "grouped_matmul.cu", CSRC / "decode_attention.cu"
+# name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
-    # the K loop stops one 32-deep step early
-    "skip the last K step": ("for (int kt = 0; kt < nk; ++kt) {",
-                             "for (int kt = 0; kt < nk - 1; ++kt) {"),
-    # the last row of a ragged M is never stored (M = 1 at decode)
+    # the wgmma route's K loop stops one 64-deep stage early
+    "skip the last K step": (
+        GMM, "const int n_kb = (K + kWK - 1) / kWK;",
+        "const int n_kb = (K + kWK - 1) / kWK - 1;", ("phase 12",)),
+    # the streaming route never stores the last row (M = 1 at decode)
     "drop the last row of a ragged M": (
-        "if (row >= M || col >= N) continue;",
-        "if (row >= M - (M % kBM != 0) || col >= N) continue;"),
+        GMM,
+        "og[static_cast<int64_t>(m) * N + n0 + tid] = __float2bfloat16(s);",
+        "if (m + 1 < M) "
+        "og[static_cast<int64_t>(m) * N + n0 + tid] = __float2bfloat16(s);",
+        ("phase 12",)),
+    # the streaming route's zero test reads only the first 8 elements of
+    # x[g], so a group whose first 8 are zero skips its product
+    "zero test reads only x[g][:8]": (
+        GMM, "const int n_test = M * K;", "const int n_test = min(M * K, 8);",
+        ("phase 12", "phase 15")),
+    # the merge of flash-decode's splits leaves out the last one's values
+    "merge drops the last split": (
+        DECODE, "for (int s = part; s < n_split; s += kMergeParts)",
+        "for (int s = part; s < n_split - 1; s += kMergeParts)",
+        ("phase 7",)),
 }
 CHECKS = """
 import sys, torch
@@ -39,41 +57,54 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 dev = torch.device("cuda")
 failed = []
-try:
-    err, _ = cs.check_gmm(dev)
-    print(f"phase 12 largest row relerr {err:.3e} (limit {cs.GMM_TOL:.1e})")
-    if err > cs.GMM_TOL:
-        failed.append("phase 12")
-except SystemExit as e:
-    print(f"phase 12: {e}")
-    failed.append("phase 12")
+for phase, check, tol in (("phase 7", cs.check_decode, cs.DECODE_TOL),
+                          ("phase 12", cs.check_gmm, cs.GMM_TOL)):
+    try:
+        err, _ = check(dev)
+        print(f"{phase} largest row relerr {err:.3e} (limit {tol:.1e})")
+        if err > tol:
+            failed.append(phase)
+    except SystemExit as e:
+        print(f"{phase}: {e}")
+        failed.append(phase)
 try:
     cs.check_qwen_vs_plain(dev)
 except SystemExit:
     failed.append("phase 15")
 print("FAILED:", ", ".join(failed) or "none", flush=True)
 """
+LAST_SPLIT = "one valid slot, in the last split"
 
 
-def probe(name: str, fault, tmp: Path) -> str:
-    copy = tmp / name.replace(" ", "_")
+def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
+    """(the checks' ``FAILED:`` line, their whole output) for one tree."""
+    copy = tmp / re.sub(r"\W+", "_", name)
     shutil.copytree(ROOT / "src", copy / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
     if fault is not None:
-        path = copy / SOURCE
+        path = copy / fault[0]
         text = path.read_text()
-        if text.count(fault[0]) != 1:
+        if text.count(fault[1]) != 1:
             raise SystemExit(f"{name}: the text to replace is not in "
-                             f"{SOURCE} exactly once")
-        path.write_text(text.replace(fault[0], fault[1]))
+                             f"{fault[0]} exactly once")
+        path.write_text(text.replace(fault[1], fault[2]))
     out = subprocess.run([sys.executable, "-c", CHECKS, str(copy)],
                          capture_output=True, text=True, timeout=900)
     text = out.stdout + out.stderr[-2000:]
     for line in text.splitlines():
         print(f"[{name}] {line}", flush=True)
     lines = [ln for ln in text.splitlines() if ln.startswith("FAILED:")]
-    return lines[-1] if lines else f"FAILED: exit {out.returncode}"
+    return (lines[-1] if lines else f"FAILED: exit {out.returncode}"), text
+
+
+def last_split_caught(text: str) -> bool:
+    """Whether phase 7's cases with the only visible slot in the last split
+    read above the limit."""
+    import chip_smoke as cs
+    errs = [float(m.group(1)) for m in re.finditer(
+        re.escape(LAST_SPLIT) + r": row relerr ([0-9.e+-]+)", text)]
+    return bool(errs) and all(e > cs.DECODE_TOL for e in errs)
 
 
 def main() -> int:
@@ -85,12 +116,17 @@ def main() -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         for name, fault in FAULTS.items():
-            verdict = probe(name, fault, Path(tmp))
-            print(f"{name}: {verdict}", flush=True)
+            verdict, text = probe(name, fault, Path(tmp))
             if fault is None:
-                ok &= verdict == "FAILED: none"
+                caught = verdict == "FAILED: none"
             else:
-                ok &= "phase 12" in verdict
+                caught = any(p in verdict for p in fault[3])
+                if fault[0] == DECODE:
+                    caught &= last_split_caught(text)
+            print(f"{name}: {verdict} -> "
+                  f"{'as required' if caught else 'NOT as required'}",
+                  flush=True)
+            ok &= caught
     return 0 if ok else 1
 
 

@@ -31,9 +31,12 @@ Phases, each fatal on failure:
    attention kernels): at the full width of
    RecurrentGemma-9B's serving path (prefill B = 4, L = S = 3,072, 16 q
    heads, 1 kv head, hd 256, window 2,048; decode over a wrapped 2,048-slot
-   ring; the scan at B = 4, L = 3,072, W = 4,096) and at edge shapes.
+   ring; the scan at B = 4, L = 3,072, W = 4,096), at Qwen3-30B-A3B's
+   decode shape and at edge shapes (among them a cache whose only visible
+   slot lies in flash-decode's last split).
 8. Time them as phase 3 does, beside their bounds, their plain versions
-   and ``scaled_dot_product_attention`` on the same inputs.
+   and ``scaled_dot_product_attention`` on the same inputs; flash-decode at
+   both models' decode shapes.
 9. Serve RecurrentGemma-9B at full width and depth (38 layers, random
    weights from a seed) through ``repro_torch.launch.serve.serve``: batch
    4, 8 requests (so slots are refilled), prompts of 3,072 tokens, 32 new
@@ -50,10 +53,13 @@ Phases, each fatal on failure:
 12. Hold the grouped matmul kernel (the MoE expert products) against its
    plain version on the card, per output row: at the four shapes of
    Qwen3-30B-A3B's MoE path (128 experts; M = 960 at prefill, 1 at decode;
-   K x N = 2,048 x 768 and 768 x 2,048) and at edge shapes (G = 1, M = 1,
-   ragged M, N and K on both load paths, an all-zero group).
+   K x N = 2,048 x 768 and 768 x 2,048), at the decode's sparsity (32 of
+   128 groups with a row, the rest exactly zero, which must come out
+   exactly zero) and at edge shapes of the kernel's three routes (G = 1,
+   M = 1, ragged M, N and K, an all-zero group).
 13. Time it as phase 3 does, beside its bound, its launch floor, its plain
-   version and ``torch.bmm`` on the same tensors.
+   version and ``torch.bmm`` on the same tensors; the sparse decode input
+   beside its dense bound and its bound over the groups with a row.
 14. Serve Qwen3-30B-A3B at full width and depth (48 layers, 128 experts,
    30.5B parameters, random weights from a seed) as phase 9 serves
    RecurrentGemma-9B. The counts must be 144 grouped matmul and 48 flash
@@ -268,7 +274,8 @@ def ring_cache(dev, B, S, Kv, hd, cur, seed, empty_all_but=None):
     """A decode cache after positions 0..cur were written into an S-slot
     ring: slot j holds the latest position p <= cur with p % S == j (or -1
     when none was written). ``empty_all_but`` empties every slot but that
-    one, or every slot when it is -1 (both kernels then average V)."""
+    one (which holds ``cur`` if it was never written), or every slot when it
+    is -1 (both kernels then average V)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
     j = torch.arange(S, device=dev)
@@ -276,6 +283,7 @@ def ring_cache(dev, B, S, Kv, hd, cur, seed, empty_all_but=None):
     pos = torch.where(pos >= 0, pos, -1).to(torch.int32).repeat(B, 1)
     if empty_all_but is not None:
         keep = pos[:, empty_all_but].clone()
+        keep = torch.where(keep >= 0, keep, cur)
         pos.fill_(-1)
         if empty_all_but >= 0:
             pos[:, empty_all_but] = keep
@@ -286,6 +294,9 @@ FLASH_FULL = dict(B=4, Hq=16, Hkv=1, L=3072, S=3072, hd=256,
                   kw=dict(causal=True, window=2048))
 DECODE_FULL = dict(B=4, Hq=16, Kv=1, S=2048, hd=256, cur=3100,
                    kw=dict(window=2048))
+# Qwen3-30B-A3B's decode: G = 8 at hd 128 over a 4,096-slot cache with no
+# window, its last 995 slots still empty
+DECODE_QWEN = dict(B=4, Hq=32, Kv=4, S=4096, hd=128, cur=3100, kw=dict())
 RGLRU_FULL = dict(B=4, L=3072, W=4096)
 # bf16 tolerance of tests/test_kernels.py, held per row (row_relerr)
 FLASH_TOL = DECODE_TOL = 2e-2
@@ -329,7 +340,7 @@ def check_flash(dev):
 
 def check_decode(dev):
     from repro_torch.kernels import decode_attention as da
-    D = DECODE_FULL
+    D, Q = DECODE_FULL, DECODE_QWEN
     cases = [("full B=4 S=2048 Hq16 Kv1 hd256 wrapped", D["B"], D["Hq"],
               D["Kv"], D["S"], D["hd"], D["cur"], D["kw"], None)]
     cases += [
@@ -343,10 +354,21 @@ def check_decode(dev):
          dict(softcap=50.0), None),
         ("Hq=Kv=4", 3, 4, 4, 512, 256, 700, dict(), None),
         ("G=2 hd128", 2, 16, 8, 640, 128, 1000, dict(window=256), None),
-        # Qwen3-30B-A3B's decode: G = 8 at hd 128 over a 4,096-slot cache
-        # with no window, its last 995 slots still empty
-        ("qwen B=4 S=4096 Hq32 Kv4 hd128", 4, 32, 4, 4096, 128, 3100, dict(),
-         None),
+        ("qwen B=4 S=4096 Hq32 Kv4 hd128", Q["B"], Q["Hq"], Q["Kv"], Q["S"],
+         Q["hd"], Q["cur"], Q["kw"], None),
+        # the kernel splits the cache into runs of slots: a merge that drops
+        # a split, or skips one it should not, shows here
+        ("one valid slot, in the last split", D["B"], D["Hq"], D["Kv"],
+         D["S"], D["hd"], D["cur"], D["kw"], D["S"] - 1),
+        ("qwen, one valid slot, in the last split", Q["B"], Q["Hq"], Q["Kv"],
+         Q["S"], Q["hd"], Q["cur"], Q["kw"], Q["S"] - 1),
+        # 64-slot tiles with a ragged last tile and a short last split
+        ("ragged S=4000 window 3000 softcap 30, Hq32 Kv4 hd128", 4, 32, 4,
+         4000, 128, 5000, dict(window=3000, softcap=30.0), None),
+        # hd 512: splits of four 64-slot tiles in a one-tile ring, the
+        # deepest ring a block's shared memory holds at that width
+        ("hd512, 64-slot tiles, one-tile ring", 16, 8, 8, 768, 512, 900,
+         dict(), None),
     ]
     worst = worst_abs = 0.0
     for i, (name, B, Hq, Kv, S, hd, cur, kw, one) in enumerate(cases):
@@ -415,29 +437,38 @@ def time_lm_kernels(dev):
     flash_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     flash_flops = 4 * hd * pairs * B * Hq
 
-    D = DECODE_FULL
-    B, Hq, Kv, S, hd, cur = (D[x] for x in ("B", "Hq", "Kv", "S", "hd", "cur"))
-    g = torch.Generator(device=dev).manual_seed(62)
-    qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(torch.bfloat16)
-    kc, vc, pos = ring_cache(dev, B, S, Kv, hd, cur, 63)
-    dkw = dict(n_q_heads=Hq, n_kv_heads=Kv, **D["kw"])
-    t["decode_ms"] = graph_ms(lambda: da.decode_attention(qd, kc, vc, pos,
-                                                          cur, **dkw))
-    t["decode_plain_ms"] = graph_ms(lambda: da.decode_attention_plain(
-        qd, kc, vc, pos, cur, **dkw))
-    valid = da.valid_slots(pos, cur, D["kw"]["window"])
-    dmask = valid[:, None, None, :]
-    qd4 = qd[:, :, None, :]
-    kd4, vd4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
-    t["decode_sdpa_ms"] = graph_ms(lambda: Fn.scaled_dot_product_attention(
-        qd4, kd4, vd4, attn_mask=dmask, enable_gqa=True))
-    q1 = qd[:1, :1]
-    k1, v1, p1 = kc[:1, :1].contiguous(), vc[:1, :1].contiguous(), pos[:1, :1]
-    p1 = p1.contiguous()
-    t["decode_floor_ms"] = graph_ms(lambda: da.decode_attention(
-        q1.contiguous(), k1, v1, p1, cur, n_q_heads=1, n_kv_heads=1))
-    decode_bytes = 2 * (2 * qd.numel() + kc.numel() + vc.numel()) + 4 * pos.numel()
-    decode_flops = 4 * hd * int(valid.sum()) * Hq
+    decode_bounds = {}
+    for tag, D in (("decode", DECODE_FULL), ("decode_qwen", DECODE_QWEN)):
+        B, Hq, Kv, S, hd, cur = (D[x] for x in ("B", "Hq", "Kv", "S", "hd",
+                                                 "cur"))
+        g = torch.Generator(device=dev).manual_seed(62)
+        qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(torch.bfloat16)
+        kc, vc, pos = ring_cache(dev, B, S, Kv, hd, cur, 63)
+        dkw = dict(n_q_heads=Hq, n_kv_heads=Kv, **D["kw"])
+        t[f"{tag}_ms"] = graph_ms(
+            lambda: da.decode_attention(qd, kc, vc, pos, cur, **dkw))
+        t[f"{tag}_plain_ms"] = graph_ms(
+            lambda: da.decode_attention_plain(qd, kc, vc, pos, cur, **dkw))
+        valid = da.valid_slots(pos, cur, D["kw"].get("window", 0))
+        qd4 = qd[:, :, None, :]
+        kd4, vd4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+        t[f"{tag}_sdpa_ms"] = graph_ms(
+            lambda: Fn.scaled_dot_product_attention(
+                qd4, kd4, vd4, attn_mask=valid[:, None, None, :],
+                enable_gqa=True))
+        # the bytes the function needs: q and out, pos, and K and V of the
+        # visible slots only
+        n_valid = int(valid.sum())
+        dbytes = 2 * 2 * qd.numel() + 4 * pos.numel() + 2 * 2 * n_valid * Kv * hd
+        decode_bounds[tag] = bound(dbytes, 4 * hd * n_valid * Hq,
+                                   TC_BF16_FLOPS_PER_S)
+        decode_bounds[tag]["valid_slots"] = n_valid
+        if tag == "decode":   # the launch floor: one head, one slot
+            q1 = qd[:1, :1].contiguous()
+            k1, v1 = kc[:1, :1].contiguous(), vc[:1, :1].contiguous()
+            p1 = pos[:1, :1].contiguous()
+            t["decode_floor_ms"] = graph_ms(lambda: da.decode_attention(
+                q1, k1, v1, p1, cur, n_q_heads=1, n_kv_heads=1))
 
     R = RGLRU_FULL
     a, b = rglru_inputs(dev, R["B"], R["L"], R["W"], 64)
@@ -451,10 +482,8 @@ def time_lm_kernels(dev):
         + " ".join(f"{k}={v:.5f}" for k, v in t.items()))
     bounds = dict(
         flash=bound(flash_bytes, flash_flops, TC_BF16_FLOPS_PER_S),
-        decode=bound(decode_bytes, decode_flops, TC_BF16_FLOPS_PER_S),
-        rg_lru=bound(rg_bytes, rg_ops, CORE_OPS_PER_S))
-    log(f"  bounds: {json.dumps(bounds)} (flash pairs {pairs}, decode valid "
-        f"slots {int(valid.sum())})")
+        rg_lru=bound(rg_bytes, rg_ops, CORE_OPS_PER_S), **decode_bounds)
+    log(f"  bounds: {json.dumps(bounds)} (flash pairs {pairs})")
     return t, bounds
 
 
@@ -466,6 +495,8 @@ GMM_PATH = [("prefill_up", 128, 960, 2048, 768),
             ("decode_up", 128, 1, 2048, 768),
             ("decode_down", 128, 1, 768, 2048)]
 GMM_TOL = 2e-2                  # bf16 tolerance, held per output row
+# experts with a token at a decode step: at most batch 4 x top-8 of 128
+GMM_ACTIVE = 32
 
 
 def gmm_inputs(dev, G, M, K, N, seed):
@@ -476,16 +507,40 @@ def gmm_inputs(dev, G, M, K, N, seed):
     return x, w.to(torch.bfloat16)
 
 
+def sparse_gmm_inputs(dev, G, M, K, N, seed, active=GMM_ACTIVE):
+    """The decode's dispatch buffer: ``active`` random groups hold rows, the
+    rest are exactly zero, as the MoE dispatch leaves the experts that
+    received no token. Four of the active groups are zero in their first
+    K/2 columns, so a zero test has to read all of x[g]. Returns (x, w,
+    bool mask of the zero groups)."""
+    x, w = gmm_inputs(dev, G, M, K, N, seed)
+    g = torch.Generator().manual_seed(seed)
+    keep = torch.randperm(G, generator=g)[:active]
+    zero = torch.ones(G, dtype=torch.bool)
+    zero[keep] = False
+    x[zero.to(dev)] = 0
+    x[keep[:4].to(dev), :, :K // 2] = 0
+    return x, w, zero.to(dev)
+
+
 def check_gmm(dev):
     """Kernel vs plain version per output row at the path's shapes and at
-    edge shapes; returns the largest per-row relative error and the largest
-    absolute error."""
+    edge shapes of each of the kernel's three routes; returns the largest
+    per-row relative error and the largest absolute error. Groups whose x
+    is all zero must come out exactly zero."""
     from repro_torch.kernels import grouped_matmul as gm
     cases = [(f"path {n} G={G} M={M} K={K} N={N}", G, M, K, N, None)
              for n, G, M, K, N in GMM_PATH]
+    cases += [(f"path {n} G={G} M={M} K={K} N={N}, {GMM_ACTIVE} groups with "
+               "a row", G, M, K, N, "sparse")
+              for n, G, M, K, N in GMM_PATH if M == 1]
     cases += [
         ("G=1 M=1", 1, 1, 2048, 768, None),
-        ("ragged, 16-byte loads: M=100 K=200 N=136", 5, 100, 200, 136, None),
+        ("ragged, TMA: M=100 K=200 N=136", 5, 100, 200, 136, None),
+        ("TMA, M=16 past the streaming route's x: K=2048 N=256", 3, 16, 2048,
+         256, None),
+        ("streaming: M=16 K=1024 N=136", 3, 16, 1024, 136, None),
+        ("streaming: M=3 K=200 N=72", 5, 3, 200, 72, "sparse"),
         ("ragged, element loads: M=33 K=100 N=70", 3, 33, 100, 70, None),
         ("element loads: M=65 K=8 N=129", 2, 65, 8, 129, None),
         ("N=1 K=37", 1, 64, 37, 1, None),
@@ -493,13 +548,18 @@ def check_gmm(dev):
     ]
     worst = worst_abs = 0.0
     for i, (name, G, M, K, N, zero) in enumerate(cases):
-        x, w = gmm_inputs(dev, G, M, K, N, seed=80 + i)
-        if zero is not None:
-            x[zero] = 0
+        if zero == "sparse":
+            x, w, zero = sparse_gmm_inputs(dev, G, M, K, N, seed=80 + i,
+                                           active=min(GMM_ACTIVE, G - 2))
+        else:
+            x, w = gmm_inputs(dev, G, M, K, N, seed=80 + i)
+            if zero is not None:
+                x[zero] = 0
         got, want = gm.grouped_matmul(x, w), gm.grouped_matmul_plain(x, w)
         torch.cuda.synchronize()
         if zero is not None and bool(got[zero].any()):
-            raise SystemExit("grouped_matmul: an all-zero group gave non-zeros")
+            raise SystemExit(f"grouped_matmul {name}: an all-zero group gave "
+                             "non-zeros")
         e, ea = row_relerr(got, want), abserr(got, want)
         log(f"  grouped_matmul {name}: row relerr {e:.2e}, max abs err {ea:.2e}")
         worst, worst_abs = max(worst, e), max(worst_abs, ea)
@@ -520,14 +580,33 @@ def time_gmm(dev):
         t[f"{key}_bmm_ms"] = graph_ms(lambda: torch.bmm(x, w))
         bounds[key] = bound(2 * (G * M * K + G * K * N + G * M * N),
                             2 * G * M * K * N, TC_BF16_FLOPS_PER_S)
+        if M != 1:
+            continue
+        x, w, zero = sparse_gmm_inputs(dev, G, M, K, N, seed=92)
+        dense, key = bounds[key], f"{key}_sparse"
+        t[f"{key}_ms"] = graph_ms(lambda: gm.grouped_matmul(x, w))
+        t[f"{key}_plain_ms"] = graph_ms(lambda: gm.grouped_matmul_plain(x, w),
+                                        calls=2, repeats=3)
+        t[f"{key}_bmm_ms"] = graph_ms(lambda: torch.bmm(x, w))
+        # the dense bound reads every group's w; the sparse one only the
+        # groups that have a row (x and out are read and written whole)
+        act = G - int(zero.sum())
+        bounds[key] = bound(2 * (G * M * K + act * K * N + G * M * N),
+                            2 * act * M * K * N, TC_BF16_FLOPS_PER_S)
+        bounds[key].update(dense_bound_ms=dense["bound_ms"],
+                           groups_with_a_row=act)
     x1, w1 = gmm_inputs(dev, 1, 1, 8, 8, seed=91)
     t["floor_ms"] = graph_ms(lambda: gm.grouped_matmul(x1, w1))
     log("phase 13 grouped matmul timing (ms per call, median): "
         + " ".join(f"{k}={v:.5f}" for k, v in t.items()))
     step = lambda up, down: 48 * (2 * up + down)     # 48 layers x 3 products
     log(f"  bounds: {json.dumps(bounds)}; per decode step: kernel "
+        f"{step(t['decode_up_sparse_ms'], t['decode_down_sparse_ms']):.2f} ms "
+        f"at {GMM_ACTIVE} groups with a row, bound "
+        f"{step(bounds['decode_up_sparse']['bound_ms'], bounds['decode_down_sparse']['bound_ms']):.2f} ms "
+        f"(dense inputs: kernel "
         f"{step(t['decode_up_ms'], t['decode_down_ms']):.2f} ms, bound "
-        f"{step(bounds['decode_up']['bound_ms'], bounds['decode_down']['bound_ms']):.2f} ms")
+        f"{step(bounds['decode_up']['bound_ms'], bounds['decode_down']['bound_ms']):.2f} ms)")
     return t, bounds
 
 
@@ -1151,11 +1230,16 @@ def main() -> int:
         shapes={key: dict(ms=gmm_t[f"{key}_ms"],
                           plain_ms=gmm_t[f"{key}_plain_ms"],
                           library_ms=gmm_t[f"{key}_bmm_ms"], **gmm_bounds[key])
-                for key, *_ in GMM_PATH}))
+                for key in gmm_bounds}))
     for k in kernels:
         if k["name"] in ("flash_attention", "decode_attention"):
             k["qwen_launches"] = qwen_counts["flash" if k["name"] ==
                                              "flash_attention" else "decode"]
+        if k["name"] == "decode_attention":
+            k["qwen_shape"] = dict(ms=lm_t["decode_qwen_ms"],
+                                   plain_ms=lm_t["decode_qwen_plain_ms"],
+                                   library_ms=lm_t["decode_qwen_sdpa_ms"],
+                                   **lm_bounds["decode_qwen"])
     log(smi)                                # card name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,11 +17,14 @@ port's decode agrees with it to the bfloat16 tolerance.
 
 :func:`decode_attention` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a
-fallback). ``launches`` counts kernel launches.
+fallback). ``launches`` counts calls of the kernel, one per call: the
+kernel runs in two passes (the splits of the cache, then their merge),
+whose split count :func:`split_plan` picks from the shapes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -32,12 +35,15 @@ NEG_INF = -1e30
 
 launches = 0
 
+TILE = 32          # cache slots a split is a multiple of
+MAX_SPAN = 4096    # cache slots per split at most (kMaxSpan)
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k_cache, v_cache, pos, out, B, S, Kv, G, hd, cur_index, window,
-    # softcap, scale, stream
-    "decode_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                       _P], ctypes.c_int),
+    # q, k_cache, v_cache, pos, ws, out, B, S, Kv, G, hd, cur_index, window,
+    # softcap, scale, n_split, span, stream
+    "decode_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _I, _I, _P], ctypes.c_int),
 }
 
 
@@ -72,6 +78,22 @@ def decode_attention_plain(q, k_cache, v_cache, pos, cur_index: int, *,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def split_plan(batch_kv: int, S: int, sms: int) -> tuple[int, int]:
+    """``(n_split, span)``: the kernel's cache of ``S`` slots in ``n_split``
+    runs of ``span`` slots, each a whole number of ``TILE``-slot tiles, so
+    that ``batch_kv * n_split`` blocks come to about two per SM where S
+    allows it, and no split exceeds ``MAX_SPAN`` slots."""
+    tiles = -(-S // TILE)
+    want = max(-(-2 * sms // batch_kv), -(-S // MAX_SPAN))
+    per = -(-tiles // min(tiles, want))
+    return -(-tiles // per), per * TILE
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _require_cuda(q, k_cache, v_cache, pos):
     for x in (q, k_cache, v_cache, pos):
         if x.device.type != "cuda" or x.device != q.device:
@@ -93,10 +115,10 @@ def _check(q, k_cache, v_cache, pos, n_q_heads, n_kv_heads):
             f"{tuple(k_cache.shape)} do not fit Hq={n_q_heads}, "
             f"Kv={n_kv_heads}")
     G = Hq // Kv
-    if hd % 8 or hd > 512 or G > 64 or G * hd > 8192:
+    if hd % 16 or hd > 512 or G > 64 or -(-G // 4) * hd > 2048:
         raise ValueError("decode_attention: the kernel takes hd a multiple "
-                         f"of 8 up to 512 and G * hd <= 8192, got hd={hd}, "
-                         f"G={G}")
+                         "of 16 up to 512, G <= 64 and ceil(G / 4) * hd <= "
+                         f"2048, got hd={hd}, G={G}")
     for x in (q, k_cache, v_cache):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or \
                 x.data_ptr() % 16:
@@ -134,12 +156,17 @@ def decode_attention(q, k_cache, v_cache, pos, cur_index: int, *,
     if q.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    G = Hq // Kv
     lib = _build.load("decode_attention", _SIGNATURES)
+    n_split, span = split_plan(B * Kv, S, _sm_count(q.device.index))
+    # each split's softmax state: acc [G, hd], then (m, l) per head
+    ws = torch.empty(B * Kv * n_split * G * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     _build.launch(
         lib.decode_launch, "decode_attention", q.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, S, Kv, Hq // Kv, hd, int(cur_index), int(window),
-        float(softcap), float(scale),
+        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), B, S, Kv, G, hd, int(cur_index), int(window),
+        float(softcap), float(scale), n_split, span,
         torch.cuda.current_stream(q.device).cuda_stream)
     launches += 1
     return out

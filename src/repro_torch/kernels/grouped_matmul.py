@@ -12,7 +12,14 @@ layer.
 
 The CUDA kernel takes bfloat16 only; the plain version takes float32 too.
 Unlike the Pallas kernel, neither needs M, N or K to be a multiple of a
-tile: the MoE path gives M = 960 at prefill and M = 1 at decode.
+tile: the MoE path gives M = 960 at prefill and M = 1 at decode. The kernel
+picks one of three routes from the shapes (``csrc/grouped_matmul.cu``): TMA
+and ``wgmma`` for large M, a streaming route for M <= 16 that reads no
+weights of a group whose rows are all zero (the dispatch zero-fills the
+capacity rows of experts without a token), and an element-by-element route
+where K or N is not a multiple of 8. The one difference that skip makes:
+a non-finite weight of a group whose x is all zero gives 0, where the plain
+version gives NaN.
 
 :func:`grouped_matmul` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a

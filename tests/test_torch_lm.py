@@ -43,6 +43,7 @@ from repro.models import count_params as R_count  # noqa: E402
 from repro.models import layers as R_ly  # noqa: E402
 from repro.models import model_flops as R_flops  # noqa: E402
 from repro_torch.configs import get_config as Q_get_config  # noqa: E402
+from repro_torch.kernels import grouped_matmul as Q_gmm  # noqa: E402
 from repro_torch.launch import serve as Q_serve  # noqa: E402
 from repro_torch.models import Model as Q_Model  # noqa: E402
 from repro_torch.models import build_model as Q_build  # noqa: E402
@@ -293,6 +294,43 @@ def test_moe_route_orders_experts_by_logit():
     np.testing.assert_allclose(gates.numpy(),
                                np.asarray(jax.nn.softmax(vals, -1)), rtol=1e-6)
     assert (gates[..., :-1] >= gates[..., 1:]).all()
+
+
+@pytest.mark.parametrize("B", [1, 4, 6])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
+def test_decode_dispatch_leaves_groups_without_a_token_zero(arch, B,
+                                                             monkeypatch):
+    """At decode (L = 1) each of the three buffers the MoE layer hands to
+    ``grouped_matmul`` has at most B * k groups with a nonzero row, all of
+    them experts the router picked, and every other group exactly zero.
+    The CUDA kernel's streaming route reads no weights of such a group
+    (``csrc/grouped_matmul.cu``), relying on this."""
+    cfg = Q_get_config(arch).reduced()
+    moe = Q_ly.MoE(cfg, "cpu")
+    with torch.no_grad():
+        moe.reset_parameters(torch.Generator().manual_seed(B))
+    seen = []
+    real = Q_gmm.grouped_matmul
+
+    def spy(x, w):
+        seen.append(x.clone())
+        return real(x, w)
+
+    monkeypatch.setattr(Q_gmm, "grouped_matmul", spy)
+    x = torch.tensor(np.random.default_rng(B).normal(size=(B, 1, cfg.d_model)),
+                     dtype=torch.bfloat16)
+    with torch.no_grad():
+        Q_ly.moe_apply(moe, x, cfg)
+        _, idx = Q_ly.moe_route(moe, x.reshape(1, B, -1), cfg)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    routed = set(idx.reshape(-1).tolist())
+    assert len(seen) == 3
+    for xe in seen:
+        assert xe.shape[0] == E
+        live = xe.reshape(E, -1).ne(0).any(-1)
+        assert 0 < int(live.sum()) <= B * k
+        assert set(torch.nonzero(live).reshape(-1).tolist()) <= routed
+        assert not xe[~live].any()
 
 
 # ---------------------------------------------------------------------------

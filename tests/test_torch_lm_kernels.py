@@ -234,3 +234,132 @@ def test_grouped_matmul_plain_matches_pallas_and_ref(dt, G, M, K, N):
 def test_grouped_matmul_plain_matches_ref(dt, G, M, K, N):
     # the Pallas kernel needs M divisible by its tile, so only the oracle
     _gmm_case(dt, G, M, K, N)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention: the CUDA kernel's split-S decomposition
+# ---------------------------------------------------------------------------
+
+def split_decode(q, k, v, pos, cur, *, n_q_heads, n_kv_heads, n_split, span,
+                 window=0, softcap=0.0):
+    """``csrc/decode_attention.cu``'s two passes in float32 torch. Pass 1:
+    each run of ``span`` slots is walked in tiles (64 slots where the run
+    holds two or more, else 32, as the kernel picks) with an online softmax
+    (invalid slots score -1e30), giving (m, l, acc) per head; a run with no
+    visible slot reports l = 0. Pass 2: the runs with l > 0 are rescaled by
+    exp(m - max m) and summed; where there is none, V is averaged over the
+    S slots."""
+    B, Hq, hd = q.shape
+    S, Kv = k.shape[1], n_kv_heads
+    G = Hq // Kv
+    scale = 1.0 / np.sqrt(hd)
+    valid = Q_da.valid_slots(pos, cur, window)                 # [B, S]
+    qh = q.float().reshape(B, Kv, G, hd)
+    kh, vh = (t.float().permute(0, 2, 1, 3) for t in (k, v))   # [B, Kv, S, hd]
+    tile = 64 if span % 64 == 0 and span >= 128 else 32
+    parts = []
+    for sp in range(n_split):
+        s0, s1 = sp * span, min(S, sp * span + span)
+        m = torch.full((B, Kv, G), Q_da.NEG_INF)
+        l = torch.zeros(B, Kv, G)
+        acc = torch.zeros(B, Kv, G, hd)
+        for j0 in range(s0, s1, tile):
+            j1 = min(s1, j0 + tile)
+            s = torch.einsum("bkgd,bksd->bkgs", qh, kh[:, :, j0:j1]) * scale
+            if softcap > 0:
+                s = torch.tanh(s / softcap) * softcap
+            s = torch.where(valid[:, None, None, j0:j1], s, Q_da.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - mx[..., None])
+            c = torch.exp(m - mx)
+            l = l * c + p.sum(-1)
+            acc = acc * c[..., None] + torch.einsum("bkgs,bksd->bkgd", p,
+                                                    vh[:, :, j0:j1])
+            m = mx
+        seen = valid[:, s0:s1].any(-1)[:, None, None]           # [B, 1, 1]
+        parts.append((m, torch.where(seen, l, 0.0), acc))
+    m = torch.stack([p[0] for p in parts])
+    l = torch.stack([p[1] for p in parts])
+    acc = torch.stack([p[2] for p in parts])
+    top = torch.where(l > 0, m, -torch.inf).amax(0)
+    wts = torch.where(l > 0, torch.exp(m - top), 0.0)
+    den = (wts * l).sum(0)
+    num = (wts[..., None] * torch.where(l[..., None] > 0, acc, 0.0)).sum(0)
+    mean = vh.mean(2)[:, :, None, :].expand_as(num)
+    out = torch.where(den[..., None] > 0,
+                      num / den.clamp(min=1e-30)[..., None], mean)
+    return out.reshape(B, Hq, hd)
+
+
+def _plan(S, n_split):
+    """(n_split, span) for about ``n_split`` runs of whole tiles."""
+    tiles = -(-S // Q_da.TILE)
+    per = -(-tiles // n_split)
+    return -(-tiles // per), per * Q_da.TILE
+
+
+# name: (B, Hq, Kv, S, hd, cur, kwargs, which slots stay visible)
+SPLIT_CASES = {
+    "all-empty": (2, 8, 1, 256, 64, 700, {}, "none"),
+    "last-split-only": (2, 8, 2, 384, 64, 1000, {}, "last"),
+    "ragged-1001-window-300": (2, 8, 1, 1001, 64, 2500, dict(window=300),
+                               "ring"),
+    "softcap-50": (1, 8, 2, 256, 64, 900, dict(softcap=50.0), "ring"),
+    "G8-hd128": (2, 32, 4, 256, 128, 3100, {}, "ring"),
+}
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_decode_matches_plain_and_pallas(case, n_split):
+    """The split-S decomposition against the plain version and, where the
+    Pallas kernel's ``S % bs == 0`` holds, the Pallas kernel (interpret
+    mode) and its oracle, in float32: 2e-5. The run counts 3 and 7 divide
+    none of the cache lengths."""
+    B, Hq, Kv, S, hd, cur, kw, keep = SPLIT_CASES[case]
+    pos = ring_positions(B, S, cur)
+    if keep == "none":
+        pos[:] = -1
+    elif keep == "last":                  # one slot, in the last run only
+        pos[:] = -1
+        pos[:, S - 1] = cur
+    n, span = _plan(S, n_split)
+    assert (n - 1) * span < S <= n * span
+    rng = np.random.default_rng(S + n_split)
+    qj, qt = both(rng.normal(size=(B, Hq, hd)), "f32")
+    kj, kt = both(rng.normal(size=(B, S, Kv, hd)), "f32")
+    vj, vt = both(rng.normal(size=(B, S, Kv, hd)), "f32")
+    heads = dict(n_q_heads=Hq, n_kv_heads=Kv)
+    pt = torch.tensor(pos, dtype=torch.int32)
+    got = split_decode(qt, kt, vt, pt, cur, **heads, n_split=n, span=span,
+                       **kw)
+    assert relerr(got, Q_da.decode_attention_plain(qt, kt, vt, pt, cur,
+                                                   **heads, **kw)) < TOL["f32"]
+    pj = jnp.asarray(pos, jnp.int32)
+    ref = R_ops.decode_attention(qj, kj, vj, pj, jnp.int32(cur), **heads,
+                                 impl="ref", **kw)
+    assert relerr(got, ref) < TOL["f32"]
+    if S % 128 == 0:
+        pallas = R_ops.decode_attention(qj, kj, vj, pj, jnp.int32(cur),
+                                        **heads, bs=128, **kw)
+        assert relerr(got, pallas) < TOL["f32"]
+
+
+@pytest.mark.parametrize("B,Kv,S,want", [
+    (4, 1, 2048, (64, 32)),       # RecurrentGemma-9B's decode: 256 blocks
+    (4, 4, 4096, (16, 256)),      # Qwen3-30B-A3B's decode: 256 blocks
+    (1, 1, 1, (1, 32)),
+    (2, 1, 300, (10, 32)),
+    (64, 8, 4096, (1, 4096)),
+    (1, 1, 100_000, None),
+])
+def test_split_plan(B, Kv, S, want):
+    """The wrapper's choice of runs on a 132-SM card: whole tiles that
+    cover S exactly once, at most ``MAX_SPAN`` slots a run, and at least
+    one block per SM where the cache has that many tiles."""
+    n, span = Q_da.split_plan(B * Kv, S, 132)
+    if want is not None:
+        assert (n, span) == want
+    assert span % Q_da.TILE == 0 and span <= Q_da.MAX_SPAN
+    assert (n - 1) * span < S <= n * span
+    assert B * Kv * n >= min(132, B * Kv * -(-S // Q_da.TILE))

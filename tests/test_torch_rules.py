@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that no parity test covers:
 
 * no module of ``src/repro_torch/``, nor ``chip_smoke.py``,
-  ``chip_fault_probe.py`` or the port's example, imports ``jax``,
+  ``chip_fault_probe.py``, ``chip_decode_probe.py`` or the port's
+  example, imports ``jax``,
   ``repro`` or ``networkx`` (the card's machine has none of them), and the
   package imports with all three blocked;
 * entry points run on CUDA unless told otherwise: without a card and
@@ -36,6 +37,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro", "networkx"}
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "chip_fault_probe.py",
+                 ROOT / "chip_decode_probe.py",
                  ROOT / "examples" / "quickstart_torch.py"])
 
 
