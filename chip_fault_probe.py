@@ -3,13 +3,14 @@
 
     python3 chip_fault_probe.py
 
-Shows whether the limits of phase 7 (flash-decode against its plain
-version, per output row), phase 12 (the grouped matmul against its plain
-version, per output row) and phase 15 (a 4-layer full-width Qwen3-30B-A3B
-through the kernels against the plain versions) catch a wrong kernel. For
-the unchanged tree and for each planted fault, ``src/`` and
-``chip_smoke.py`` are copied into a temporary directory, the fault is
-planted by an exact text substitution in one CUDA source, and the three
+Shows whether the checks of phase 2 (admission against its plain
+version, bit for bit), phase 7 (flash attention and flash-decode against
+their plain versions, per output row), phase 12 (the grouped matmul
+against its plain version, per output row) and phase 15 (a 4-layer
+full-width Qwen3-30B-A3B through the kernels against the plain versions)
+catch a wrong kernel. For the unchanged tree and for each planted fault,
+``src/`` and ``chip_smoke.py`` are copied into a temporary directory, the
+fault is planted by an exact text substitution in one CUDA source, and the
 checks run there in a subprocess; their output is printed, tagged with the
 fault. Exits non-zero when a sound check fails, or when a faulty kernel
 passes every phase named for it.
@@ -26,6 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("src/repro_torch/csrc")
 GMM, DECODE = CSRC / "grouped_matmul.cu", CSRC / "decode_attention.cu"
+FLASH, ADM = CSRC / "flash_attention.cu", CSRC / "admission.cu"
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -50,23 +52,55 @@ FAULTS = {
         DECODE, "for (int s = part; s < n_split; s += kMergeParts)",
         "for (int s = part; s < n_split - 1; s += kMergeParts)",
         ("phase 7",)),
+    # flash attention's causal edge one key late: a row sees the next key
+    "causal edge off by one": (
+        FLASH, "khi[h] = sh.causal ? min(qpos, sh.S - 1) : sh.S - 1;",
+        "khi[h] = sh.causal ? min(qpos + 1, sh.S - 1) : sh.S - 1;",
+        ("phase 7",)),
+    # the second consumer warpgroup never rescales its output by the new
+    # running max
+    "one consumer skips the rescale of O": (
+        FLASH, "o[i] *= corr[(i >> 1) & 1];",
+        "o[i] *= c == 1 ? 1.0f : corr[(i >> 1) & 1];", ("phase 7",)),
+    # admission's walk drops the running totals' update of its second step
+    "walk drops one step's update": (
+        ADM, "if (k >= 0 && last[u]) run[k] = r + grp[u];",
+        "if (k >= 0 && last[u] && s0 + u != 1) run[k] = r + grp[u];",
+        ("phase 2",)),
 }
 CHECKS = """
 import sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
+import numpy as np
+from repro_torch.core import FabricConfig, round_robin
+from repro_torch.core.fabric import _build_caps_all
 dev = torch.device("cuda")
 failed = []
-for phase, check, tol in (("phase 7", cs.check_decode, cs.DECODE_TOL),
+conn = torch.tensor(np.asarray(round_robin(cs.N_TORS, 1).conn, np.int32),
+                    device=dev)
+caps = _build_caps_all(conn, FabricConfig(), cs.N_TORS)
+try:
+    mis, _ = cs.check_admission(dev, caps[0].cpu().numpy())
+    print(f"phase 2 admission mismatches {mis}")
+    if mis:
+        failed.append("phase 2")
+except SystemExit as e:
+    print(f"phase 2: {e}")
+    failed.append("phase 2")
+for phase, check, tol in (("phase 7", cs.check_flash, cs.FLASH_TOL),
+                          ("phase 7", cs.check_decode, cs.DECODE_TOL),
                           ("phase 12", cs.check_gmm, cs.GMM_TOL)):
     try:
         err, _ = check(dev)
-        print(f"{phase} largest row relerr {err:.3e} (limit {tol:.1e})")
-        if err > tol:
+        print(f"{phase} {check.__name__} largest row relerr {err:.3e} "
+              f"(limit {tol:.1e})")
+        if err > tol and phase not in failed:
             failed.append(phase)
     except SystemExit as e:
         print(f"{phase}: {e}")
-        failed.append(phase)
+        if phase not in failed:
+            failed.append(phase)
 try:
     cs.check_qwen_vs_plain(dev)
 except SystemExit:

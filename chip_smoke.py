@@ -10,10 +10,12 @@ Phases, each fatal on failure:
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit: at the main path's shapes (108 ToRs, K = 4, 131,072 packets;
-   admission with 11,772 and 108 keys) and at edge shapes.
+   admission with 11,772 and 108 keys), at edge shapes, at the edges of
+   admission's tiles and steps, and above its shared-memory key limit.
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
-   kernel's launch floor (the same call on one packet).
+   kernel's launch floor (the same call on one packet); split admission's
+   device time by pass with the profiler.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -33,10 +35,12 @@ Phases, each fatal on failure:
    heads, 1 kv head, hd 256, window 2,048; decode over a wrapped 2,048-slot
    ring; the scan at B = 4, L = 3,072, W = 4,096), at Qwen3-30B-A3B's
    decode shape and at edge shapes (among them a cache whose only visible
-   slot lies in flash-decode's last split).
+   slot lies in flash-decode's last split, and query and key lengths one
+   past flash attention's tiles). A NaN fails every limit.
 8. Time them as phase 3 does, beside their bounds, their plain versions
-   and ``scaled_dot_product_attention`` on the same inputs; flash-decode at
-   both models' decode shapes.
+   and ``scaled_dot_product_attention`` on the same inputs; flash attention
+   at both models' prefill shapes (Qwen3-30B-A3B's beside SDPA's own causal
+   mask), flash-decode at both models' decode shapes.
 9. Serve RecurrentGemma-9B at full width and depth (38 layers, random
    weights from a seed) through ``repro_torch.launch.serve.serve``: batch
    4, 8 requests (so slots are refilled), prompts of 3,072 tokens, 32 new
@@ -81,6 +85,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -233,6 +238,37 @@ def check_admission(dev, caps_row):
     for p in (1, 7, 255, 4097):
         cases.append((f"edge P={p}", rng.integers(0, 300, p), sz(p),
                       rng.random(p) < 0.7, rng.integers(0, 6000, 300), 300))
+    # the edges of the kernel's tiles (admission_tile: 2,048 packets at
+    # 11,772 keys and ~129k packets; 1,024 at 108 keys and 131,072; 256 at
+    # a few thousand) and of its 32-packet steps
+    for p in (63 * 2048 - 1, 63 * 2048, 63 * 2048 + 1):
+        assert adm.admission_tile(p, NK) == 2048
+        cases.append((f"tile edge P={p} NK=11772", rng.integers(0, NK, p),
+                      sz(p), rng.random(p) < 0.8,
+                      rng.integers(0, 3000, NK), NK))
+    # 1,025 tiles of 2,048: the scan's groups hold more tiles than its
+    # threads keep in registers
+    p = (1 << 21) + 1
+    cases.append((f"scan of 1025 tiles P={p} NK=108", rng.integers(0, N, p),
+                  sz(p), rng.random(p) < 0.5,
+                  rng.integers(0, 20_000_000, N), N))
+    for p in (P - 1, P + 1):    # 128 tiles of 1,024, and 65 of 2,048
+        cases.append((f"tile edge P={p} NK=108", rng.integers(0, N, p),
+                      sz(p), rng.random(p) < 0.5,
+                      rng.integers(0, 2_000_000, N), N))
+    for p in (31, 33, 256, 257, 2047, 2049):
+        cases.append((f"tile edge P={p} NK=108 few keys",
+                      rng.integers(0, 5, p), sz(p), rng.random(p) < 0.9,
+                      rng.integers(0, 40_000, N), N))
+    # above the shared-memory route's key limit: the running totals stay in
+    # device memory
+    big = adm.SMEM_KEYS + 1
+    for p in (1, 2049, P):
+        cases.append((f"global route NK={big} P={p}",
+                      rng.integers(0, big, p), sz(p), rng.random(p) < 0.7,
+                      rng.integers(0, 20_000, big), big))
+    cases.append((f"global route NK={big}, one hot key", np.full(P, big - 1),
+                  sz(P), rng.random(P) < 0.9, np.full(big, 3_000_000), big))
     total, worst = 0, 0
     for name, key, size, want, cap, nk in cases:
         m, e, n_adm = case(key, size, want, cap, nk)
@@ -243,10 +279,16 @@ def check_admission(dev, caps_row):
 
 # -- the language-model serving path (phases 7-11) ------------------------------
 
+def finite_or_inf(x: float) -> float:
+    """A NaN reading becomes +inf, so that it fails every limit (a NaN
+    compares false against a limit and would pass it)."""
+    return math.inf if math.isnan(x) else x
+
+
 def relerr(a, b) -> float:
     """max |a - b| / max |b|, in float32 (the metric of tests/test_kernels.py)."""
     a, b = a.float(), b.float()
-    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+    return finite_or_inf(float((a - b).abs().max() / (b.abs().max() + 1e-6)))
 
 
 def row_relerr(a, b) -> float:
@@ -257,11 +299,12 @@ def row_relerr(a, b) -> float:
     in them."""
     a = a.float().reshape(-1, a.shape[-1])
     b = b.float().reshape(-1, b.shape[-1])
-    return float(((a - b).abs().amax(-1) / (b.abs().amax(-1) + 1e-6)).max())
+    return finite_or_inf(float(((a - b).abs().amax(-1)
+                                / (b.abs().amax(-1) + 1e-6)).max()))
 
 
 def abserr(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return finite_or_inf(float((a.float() - b.float()).abs().max()))
 
 
 def flash_inputs(dev, B, Hq, Hkv, L, S, hd, seed, dtype=torch.bfloat16):
@@ -324,6 +367,14 @@ def check_flash(dev):
         # Qwen3-30B-A3B's prefill: GQA G = 8 at hd 128, causal, no window
         ("qwen B=4 L=S=3072 Hq32 Hkv4 hd128", 4, 32, 4, 3072, 3072, 128,
          dict(causal=True)),
+        # one row past a 128-row query tile and a 64- or 128-key tile
+        ("L=S=129 hd256 w2048", 2, 16, 1, 129, 129, 256,
+         dict(causal=True, window=2048)),
+        ("L=S=2049 hd128 G=4", 1, 8, 2, 2049, 2049, 128, dict(causal=True)),
+        ("hd128 window 300 L=S=1000", 2, 8, 2, 1000, 1000, 128,
+         dict(causal=True, window=300)),
+        ("L=300 S=1000 q_offset 700 hd128 window 500", 2, 8, 1, 300, 1000,
+         128, dict(causal=True, window=500, q_offset=700)),
     ]
     worst = worst_abs = 0.0
     for i, (name, B, Hq, Hkv, L, S, hd, kw) in enumerate(cases):
@@ -478,10 +529,28 @@ def time_lm_kernels(dev):
     a1, b1 = a[:1, :1, :1].contiguous(), b[:1, :1, :1].contiguous()
     t["rg_lru_floor_ms"] = graph_ms(lambda: rl.rg_lru(a1, b1))
     rg_bytes, rg_ops = 12 * a.numel(), 2 * a.numel()
+    # Qwen3-30B-A3B's prefill shape, beside SDPA's own causal mask (its
+    # flash backend, no mask tensor)
+    B, Hq, Hkv, L, S, hd = 4, 32, 4, 3072, 3072, 128
+    q, k, v = flash_inputs(dev, B, Hq, Hkv, L, S, hd, seed=65)
+    qkw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=True)
+    t["flash_qwen_ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, **qkw))
+    t["flash_qwen_plain_ms"] = graph_ms(
+        lambda: fa.flash_attention_plain(q, k, v, **qkw), calls=2, repeats=3)
+    q4, k4, v4 = (x.view(B, -1, x.shape[1], hd) for x in (q, k, v))
+    t["flash_qwen_sdpa_ms"] = graph_ms(lambda: Fn.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True))
+    qwen_pairs = L * (L + 1) // 2
+    qwen_bound = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * hd * qwen_pairs * B * Hq, TC_BF16_FLOPS_PER_S)
+    del q, k, v, q4, k4, v4
+    gc.collect()
+    torch.cuda.empty_cache()
     log("phase 8 LM kernel timing (ms per call, median): "
         + " ".join(f"{k}={v:.5f}" for k, v in t.items()))
     bounds = dict(
         flash=bound(flash_bytes, flash_flops, TC_BF16_FLOPS_PER_S),
+        flash_qwen=qwen_bound,
         rg_lru=bound(rg_bytes, rg_ops, CORE_OPS_PER_S), **decode_bounds)
     log(f"  bounds: {json.dumps(bounds)} (flash pairs {pairs})")
     return t, bounds
@@ -903,6 +972,28 @@ def profile_serve(dev, arch, phase):
     return out
 
 
+def device_breakdown(fn, calls: int = 20) -> dict:
+    """Device microseconds per ``fn()`` call of each kernel it launches,
+    from the profiler over ``calls`` calls (after three unprofiled ones)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0:
+            m = re.search(r"(\w+)\(", e.key)
+            name = m.group(1) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + self_device_ms(e) * 1e3 / calls
+    return out
+
+
 def self_device_ms(e) -> float:
     """Self device time of a profiler row in ms (the attribute was named
     ``self_cuda_time_total`` before torch 2.4)."""
@@ -933,7 +1024,7 @@ def main() -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     for name, out in _build.build_logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"nvidia-smi: {smi}")
     log(f"device: {kind}, count {torch.cuda.device_count()}")
@@ -946,6 +1037,11 @@ def main() -> int:
                                 i32(routing.tf_next), i32(routing.tf_dep))
     caps = _build_caps_all(i32(sched.conn), FabricConfig(), N_TORS)
     log("phase 2 kernels vs plain versions")
+    adm_lib = _build.load("admission", adm._SIGNATURES)
+    if adm_lib.adm_smem_keys() != adm.SMEM_KEYS:
+        raise SystemExit("admission: the kernel's shared-memory key limit "
+                         f"{adm_lib.adm_smem_keys()} is not the wrapper's "
+                         f"{adm.SMEM_KEYS}")
     tfl_mis, tfl_err = check_lookup(dev, stk_n, stk_d)
     adm_mis, adm_err = check_admission(dev, caps[0].cpu().numpy())
     if tfl_mis or adm_mis:
@@ -986,6 +1082,14 @@ def main() -> int:
         key[:1], size[:1], want[:1], cap, num_keys=NK))
     log("phase 3 timing (ms per call, median): "
         + " ".join(f"{k}={v:.5f}" for k, v in timings.items()))
+    for tag, args, nk in (("11772 keys", (key, size, want, cap), NK),
+                          ("108 keys", (rx_key, size, want, room), N_TORS),
+                          ("one packet", (key[:1], size[:1], want[:1], cap),
+                           NK)):
+        per = device_breakdown(lambda: adm.admission_admit(*args,
+                                                           num_keys=nk))
+        log(f"  admission {tag}, device us per call by kernel (profiler): "
+            + " ".join(f"{k}={v:.2f}" for k, v in per.items()))
 
     # -- 4. main path at 108 ToRs ----------------------------------------------
     wl = synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
@@ -1182,6 +1286,7 @@ def main() -> int:
     # capacities and admitted bytes per key
     tfl_bytes = P_MAIN * (4 * 4 + 2 * 4) + 2 * 2 * N_TORS * N_TORS * K * 4
     adm_bytes = P_MAIN * (4 + 4 + 1 + 1) + NK * 4 * 2
+    adm_rx_bytes = P_MAIN * (4 + 4 + 1 + 1) + N_TORS * 4 * 2
     # integer operations the function needs per packet: the lookup's row
     # index, K slot tests, a modulo and two gathers; admission's key
     # check, one step of a per-key running sum, a compare and an add
@@ -1204,7 +1309,8 @@ def main() -> int:
              plain_ms=timings["adm_plain_ms"],
              **bound(adm_bytes, adm_ops),
              library_ms=None, launch_floor_ms=timings["adm_floor_ms"],
-             rx_cut_ms=timings["adm_rx_ms"]),
+             rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
+                         **bound(adm_rx_bytes, adm_ops))),
     ]
     for name, key, src, line, err, err_abs in (
             ("flash_attention", "flash", "flash_attention", 77, flash_err,
@@ -1235,6 +1341,11 @@ def main() -> int:
         if k["name"] in ("flash_attention", "decode_attention"):
             k["qwen_launches"] = qwen_counts["flash" if k["name"] ==
                                              "flash_attention" else "decode"]
+        if k["name"] == "flash_attention":
+            k["qwen_shape"] = dict(ms=lm_t["flash_qwen_ms"],
+                                   plain_ms=lm_t["flash_qwen_plain_ms"],
+                                   library_ms=lm_t["flash_qwen_sdpa_ms"],
+                                   **lm_bounds["flash_qwen"])
         if k["name"] == "decode_attention":
             k["qwen_shape"] = dict(ms=lm_t["decode_qwen_ms"],
                                    plain_ms=lm_t["decode_qwen_plain_ms"],

@@ -56,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 // -- gmm_kernel_mma: the element route ---------------------------------------
@@ -69,10 +71,6 @@ constexpr int kAS = kBK + 8;   // row stride (elements) of the A tile
 constexpr int kBS = kBN + 8;   // row stride of the B tile
 constexpr int kATile = kBM * kAS;
 constexpr int kBTile = kBK * kBS;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const __nv_bfloat16* p) {
@@ -240,79 +238,6 @@ constexpr int kCBytes = 2 * kBParts * kCPartBytes;   // both consumers' rows
 constexpr size_t kWSmem =
     1024 + kWStages * kStageBytes + kCBytes + 2 * kWStages * 8;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One box of a 3-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// One box of shared memory to a 3-D tensor map, in the bulk group of the
-// issuing thread.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Synchronise the 128 threads of consumer warpgroup c (named barrier 1 + c).
-__device__ __forceinline__ void consumer_sync(int c) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in
-// 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo) << 16) |
-         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
-}
-
 // d += A (64 x 16, K-major) * B (16 x 256, MN-major), both from shared
 // memory; the immediates: scale A and B by 1, A not transposed, B
 // transposed.
@@ -417,7 +342,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       mbar_init(full + s, 1);    // the producer's arrive + the TMA bytes
       mbar_init(empty + s, 8);   // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -479,7 +404,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       unsigned char* cb = cbuf + c * kBParts * kCPartBytes;
       if ((tid & 127) == 0)   // the last tile's stores have read the buffer
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      consumer_sync(c);
+      named_sync(1 + c, 128);
 #pragma unroll
       for (int j = 0; j < kWN / 8; ++j) {
 #pragma unroll
@@ -494,8 +419,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
         }
       }
       // make the generic-proxy writes visible to TMA, then store
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      consumer_sync(c);
+      fence_proxy_async();
+      named_sync(1 + c, 128);
       if ((tid & 127) == 0) {
 #pragma unroll
         for (int part = 0; part < kBParts; ++part)
@@ -616,49 +541,6 @@ __global__ void __launch_bounds__(kSThreads)
 }
 
 // -- host ---------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D bfloat16 tensor [outer, mid, inner] (inner contiguous) read in
-// boxes of [1, box_mid, box_inner] with the 128-byte swizzle; out-of-bounds
-// elements read as zero and are not written.
-bool tensor_map(CUtensorMap* map, const void* base, uint64_t inner,
-                uint64_t mid, uint64_t outer, uint32_t box_inner,
-                uint32_t box_mid) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {inner, mid, outer};
-  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  const cuuint32_t box[3] = {box_inner, box_mid, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int MT>
 void launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* w,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). A library is built at first use into
-``<repo>/build/repro_torch/`` and named after a hash of its source and the
-compiler flags, so an edited source rebuilds. :func:`build` compiles several
+``<repo>/build/repro_torch/`` and named after a hash of its source, the
+shared headers ``csrc/*.cuh`` and the compiler flags, so an edited source
+or header rebuilds. :func:`build` compiles several
 sources at once, one ``nvcc`` process each, all started together.
 
 The only state kept here is the handle of each loaded library and the
@@ -41,11 +42,14 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name
-    carries a hash of the source and the flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    carries a hash of the source, of every header ``csrc/*.cuh`` (which
+    any source may include) and of the flags, so an edited header rebuilds
+    too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

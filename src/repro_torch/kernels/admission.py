@@ -14,9 +14,11 @@ and keys outside ``[0, num_keys)``, are parked on the sentinel key
 The Pallas kernel walks packet tiles in order and carries a per-key byte
 accumulator from tile to tile. Hopper runs blocks in no order, so the CUDA
 kernel splits that carry into three passes (see the source): per-tile
-per-key totals, an exclusive scan of them across tiles, then the in-tile
-prefix and the decision. ``tests/test_torch_kernels.py`` emulates those
-passes in plain torch ops and holds them against the plain version.
+per-key totals, an exclusive scan of them across tiles, then a walk of
+each tile in steps of 32 packets that carries the tile's running per-key
+totals and decides. :func:`admission_tile` picks the tile size;
+``tests/test_torch_kernels.py`` emulates the passes in plain torch ops and
+holds them against the plain version.
 
 All sums are of int32 bytes, as in the reference: the total of wanted bytes
 must stay below 2**31.
@@ -35,12 +37,38 @@ from . import _build
 
 launches = 0
 
+# the largest num_keys whose running totals the kernel keeps in shared
+# memory (adm_smem_keys in csrc/admission.cu, which chip_smoke.py holds
+# equal); above it they stay in the scratch in device memory
+SMEM_KEYS = 47104
+TILE_MIN, TILE_MAX = 256, 2048   # packets per tile
+SCRATCH_ENTRIES = 1 << 20        # tiles x num_keys the tile size aims at
+TILES = 128                      # tiles the tile size aims at (~1 per SM)
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    "adm_tile_size": ([], ctypes.c_int),
-    # key, size, want, cap, num_keys, P, scratch, admitted, used, stream
-    "adm_launch": ([_P, _P, _P, _P, _I, _L, _P, _P, _P, _P], ctypes.c_int),
+    "adm_smem_keys": ([], ctypes.c_int),
+    # key, size, want, cap, num_keys, P, tile, scratch, admitted, used,
+    # stream
+    "adm_launch": ([_P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
+                   ctypes.c_int),
 }
+
+
+def admission_tile(P: int, num_keys: int) -> int:
+    """Packets per tile of the kernel: the smallest power of two from 256
+    to 2,048 that holds all ``P`` packets in one tile (which needs no carry
+    across tiles: one launch) or else keeps the tiles within 128 (about one
+    block per SM) and the per-tile per-key scratch (``ceil(P / tile) x
+    num_keys`` int32) within 2^20 entries. Short tiles shorten the serial
+    walk of pass 3; long ones shrink the scratch that passes 1 and 2
+    write."""
+    tile = TILE_MIN
+    while tile < TILE_MAX and (P <= TILE_MAX and tile < P
+                               or -(-P // tile) > TILES
+                               or -(-P // tile) * num_keys > SCRATCH_ENTRIES):
+        tile *= 2
+    return tile
 
 
 def admission_admit_plain(key, size, want, cap_left, *, num_keys: int):
@@ -107,14 +135,14 @@ def admission_admit(key, size, want, cap_left, *, num_keys: int):
                                      device=key.device)
     used = torch.empty(num_keys, dtype=torch.int32, device=key.device)
     lib = _build.load("admission", _SIGNATURES)
-    tiles = -(-P // lib.adm_tile_size())
+    tile = admission_tile(P, num_keys)
     # per-tile per-key wanted bytes, scanned in place into tile offsets
-    scratch = torch.empty(tiles * num_keys, dtype=torch.int32,
+    scratch = torch.empty(-(-P // tile) * num_keys, dtype=torch.int32,
                           device=key.device)
     _build.launch(
         lib.adm_launch, "admission_admit",
         key.data_ptr(), size.data_ptr(), want.data_ptr(), cap_left.data_ptr(),
-        num_keys, P, scratch.data_ptr(), admitted.data_ptr(), used.data_ptr(),
-        torch.cuda.current_stream(key.device).cuda_stream)
+        num_keys, P, tile, scratch.data_ptr(), admitted.data_ptr(),
+        used.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     launches += 1
     return admitted, used

@@ -1,7 +1,8 @@
 """The port's kernels on the CPU: the plain versions of ``time_flow_lookup``
 and ``admission_admit`` against the Pallas kernels (interpret mode) and the
 ``repro.kernels.ref`` oracles, a plain-torch emulation of the CUDA
-admission kernel's three-pass tiling against the plain version, and the
+admission kernel's three passes (tiles, the scan across them, the walk of
+each tile in 32-packet steps) against the plain version, and the
 32-bit hash edge cases. All integer: equal bit for bit, dtypes included.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -248,12 +249,39 @@ def test_admission_cap_offset_matches_reference():
     _assert_equal(u_q, u_r)
 
 
-def _tiled_admission(key, size, want, cap, num_keys, tile, groups=32):
+def _step_inclusive(v, k):
+    """The inclusive sum of ``v`` over each lane's key group of a 32-lane
+    step, in lane order, by the kernel's pointer jumping: each lane starts
+    at its nearest lower lane of the same key and doubles the span five
+    times, reading the other lanes' values of the previous round."""
+    lanes = torch.arange(32)
+    same_lower = (k[None, :] == k[:, None]) & (lanes[None, :] < lanes[:, None])
+    prev = torch.where(same_lower, lanes[None, :], -1).amax(-1)
+    for _ in range(5):
+        src = torch.where(prev >= 0, prev, lanes)
+        v = torch.where(prev >= 0, v + v[src], v)
+        prev = torch.where(prev >= 0, prev[src], prev)
+    return v
+
+
+def _scan_groups(tiles):
+    """The scan kernel's tile groups: a power of two up to 64, doubled
+    while each group would keep eight tiles or more."""
+    g = 1
+    while g < 64 and tiles >= 8 * g:
+        g *= 2
+    return g
+
+
+def _tiled_admission(key, size, want, cap, num_keys, tile):
     """csrc/admission.cu's three passes in plain torch ops: (1) per-tile
     per-key wanted bytes, (2) an exclusive scan of those across tiles done
-    as the kernel does it (tiles split into ``groups`` chunks, chunk sums
-    scanned, then each chunk rewritten with running offsets), (3) the
-    in-tile same-key-earlier prefix plus the tile offset decides."""
+    as the kernel does it (tiles split into up to 64 chunks, chunk sums
+    scanned, each chunk rewritten with running offsets), (3) per tile, the
+    steps of 32 packets: each packet's in-step prefix and each key's step
+    total by pointer jumping, the walk that adds the tile's running per-key
+    total and then the step totals, the decision, and the admitted bytes
+    per key gathered per tile and added to ``used``. All int32."""
     P = key.shape[0]
     ok = want & (key >= 0) & (key < num_keys)
     k = torch.where(ok, key, -1).to(torch.int64)
@@ -262,6 +290,7 @@ def _tiled_admission(key, size, want, cap, num_keys, tile, groups=32):
     tile_of = torch.arange(P) // tile
     tot = torch.zeros(tiles, num_keys, dtype=torch.int32)
     tot.index_put_((tile_of[ok], k[ok]), s[ok], accumulate=True)
+    groups = _scan_groups(tiles)
     per = -(-tiles // groups)
     chunk_sum = torch.stack([tot[g * per:(g + 1) * per].sum(0, dtype=torch.int32)
                              for g in range(groups)])
@@ -272,31 +301,74 @@ def _tiled_admission(key, size, want, cap, num_keys, tile, groups=32):
         for t in range(g * per, min((g + 1) * per, tiles)):
             off[t] = r
             r += tot[t]
-    pad = tiles * tile - P
-    kt = torch.cat([k, k.new_full((pad,), -1)]).view(tiles, tile)
-    st = torch.cat([s, s.new_zeros(pad)]).view(tiles, tile)
-    lane = torch.arange(tile)
-    same_earlier = (kt[:, :, None] == kt[:, None, :]) & \
-        (lane[None, None, :] < lane[None, :, None])
-    pre = (same_earlier * st[:, None, :]).sum(-1).view(-1)[:P]
-    kc = k.clamp(min=0)
-    prefix = off[tile_of, kc].to(torch.int64) + pre
-    adm = ok & (prefix + s <= cap[kc])
+    adm = torch.zeros(P, dtype=torch.bool)
     used = torch.zeros(num_keys, dtype=torch.int32)
-    used.index_add_(0, kc, torch.where(adm, s, 0))
+    lanes = torch.arange(32)
+    for t in range(tiles):
+        running = off[t].clone()
+        got = torch.zeros(num_keys, dtype=torch.int32)
+        for i0 in range(t * tile, min(P, (t + 1) * tile), 32):
+            idx = i0 + lanes
+            live = idx < P
+            kk = torch.where(live, k[idx.clamp(max=P - 1)], -1)
+            ss = torch.where(live & (kk >= 0), s[idx.clamp(max=P - 1)], 0)
+            incl = _step_inclusive(ss, kk)
+            last = ~((kk[None, :] == kk[:, None]) &
+                     (lanes[None, :] > lanes[:, None])).any(-1)
+            parked = kk < 0
+            kc = kk.clamp(min=0)
+            prefix = torch.where(parked, 0, running[kc]) + incl - ss
+            upd = last & ~parked
+            running[kc[upd]] = running[kc[upd]] + incl[upd]
+            a = ~parked & (prefix.to(torch.int64) + ss
+                           <= cap[kc].to(torch.int64))
+            adm[idx[live]] = a[live]
+            gsum = _step_inclusive(torch.where(a, ss, 0), kk)
+            got.index_add_(0, kc[upd], gsum[upd])
+        used += got
     return adm, used
 
 
-@pytest.mark.parametrize("P", [1, 7, 255, 1000, 4097])
-@pytest.mark.parametrize("tile", [1, 3, 64, 256])
-@pytest.mark.parametrize("nk", [5, 300])
+@pytest.mark.parametrize("P", [1, 7, 2047, 2049, 4097])
+@pytest.mark.parametrize("tile", [32, 64, 256, 2048, "plan"])
+@pytest.mark.parametrize("nk", [5, 300, 11772])
 def test_admission_tiling_emulation_matches_plain(P, tile, nk):
-    """Small key counts put every group in many tiles; 3-packet tiles give
-    more tiles than scan groups, so the chunked scan is exercised."""
-    args = _torch_args(*_admission_inputs(P, nk, P + tile + nk))
+    """Small key counts put every key in many steps and tiles; 32-packet
+    tiles give 129 tiles of 4,097 packets, more than 8 a scan group; 2,049
+    and 4,097 packets leave a ragged last tile and step; ``plan`` is the
+    wrapper's own tile size."""
+    args = _torch_args(*_admission_inputs(P, nk, P + nk))
+    tile = Q_adm.admission_tile(P, nk) if tile == "plan" else tile
     a_e, u_e = _tiled_admission(*args, nk, tile)
     a_p, u_p = Q_adm.admission_admit_plain(*args, num_keys=nk)
     assert torch.equal(a_e, a_p) and torch.equal(u_e, u_p)
+
+
+def test_admission_tiling_emulation_above_shared_memory_keys():
+    """More keys than the shared-memory route holds: the kernel keeps the
+    running totals in device memory, the arithmetic is the same."""
+    nk = Q_adm.SMEM_KEYS + 1
+    args = _torch_args(*_admission_inputs(3000, nk, 8))
+    tile = Q_adm.admission_tile(3000, nk)
+    a_e, u_e = _tiled_admission(*args, nk, tile)
+    a_p, u_p = Q_adm.admission_admit_plain(*args, num_keys=nk)
+    assert torch.equal(a_e, a_p) and torch.equal(u_e, u_p)
+
+
+@pytest.mark.parametrize("P,nk,want", [
+    (131072, 11772, 2048), (131072, 108, 1024), (131073, 108, 2048),
+    (1, 11772, 256), (257, 300, 512), (2047, 11772, 2048), (4097, 300, 256),
+    (100_000, 49153, 2048)])
+def test_admission_tile(P, nk, want):
+    """The wrapper's tile size: one tile up to 2,048 packets, else at most
+    128 tiles and 2^20 scratch entries where 2,048 packets a tile allow
+    it."""
+    tile = Q_adm.admission_tile(P, nk)
+    assert tile == want and tile % 32 == 0 and tile <= 2048
+    if P <= 2048:
+        assert tile >= P
+    elif tile < 2048:
+        assert -(-P // tile) <= 128 and -(-P // tile) * nk <= 1 << 20
 
 
 def test_admission_tiling_emulation_one_hot_key():
@@ -304,7 +376,18 @@ def test_admission_tiling_emulation_one_hot_key():
     rng = np.random.default_rng(4)
     args = (_t32(np.full(P, 2)), _t32(rng.integers(64, 1501, P)),
             torch.tensor(rng.random(P) < 0.9), _t32([0, 0, 400_000, 0]))
-    a_e, u_e = _tiled_admission(*args, 4, 256)
-    a_p, u_p = Q_adm.admission_admit_plain(*args, num_keys=4)
-    assert torch.equal(a_e, a_p) and torch.equal(u_e, u_p)
+    for tile in (256, 2048):
+        a_e, u_e = _tiled_admission(*args, 4, tile)
+        a_p, u_p = Q_adm.admission_admit_plain(*args, num_keys=4)
+        assert torch.equal(a_e, a_p) and torch.equal(u_e, u_p)
     assert 0 < int(a_p.sum()) < P
+
+
+def test_admission_tiling_emulation_long_scan_groups():
+    """More than 512 tiles: the scan's groups hold more tiles than its
+    threads keep in registers, and read them twice."""
+    args = _torch_args(*_admission_inputs(20_000, 7, 11))
+    assert -(-20_000 // 32) > 512 and _scan_groups(-(-20_000 // 32)) == 64
+    a_e, u_e = _tiled_admission(*args, 7, 32)
+    a_p, u_p = Q_adm.admission_admit_plain(*args, num_keys=7)
+    assert torch.equal(a_e, a_p) and torch.equal(u_e, u_p)

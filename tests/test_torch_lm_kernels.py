@@ -363,3 +363,170 @@ def test_split_plan(B, Kv, S, want):
     assert span % Q_da.TILE == 0 and span <= Q_da.MAX_SPAN
     assert (n - 1) * span < S <= n * span
     assert B * Kv * n >= min(132, B * Kv * -(-S // Q_da.TILE))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the CUDA kernel's tile walk
+# ---------------------------------------------------------------------------
+
+def flash_walk(q, k, v, *, n_q_heads, n_kv_heads, causal=True, window=0,
+               softcap=0.0, q_offset=0):
+    """``csrc/flash_attention.cu``'s walk in float32 torch: for each 64-row
+    consumer of each 128-row query tile, the key tiles of ``tile_plan`` in
+    order. S = q k^T in float32; on the tiles the plan masks, keys a row
+    does not see score -inf; the running max starts at -1e30 and lives in
+    log2 units, the scale (or the softcap) folded into the exponent as the
+    kernel's FMA does; P is rounded to bfloat16 before P V; the output is O
+    over max(l, 1e-30). Rows that see no key come out zero."""
+    BH, Lq, hd = q.shape
+    S = k.shape[1]
+    G = n_q_heads // n_kv_heads
+    scale = 1.0 / np.sqrt(hd)
+    log2e = 1.4426950408889634
+    bk = Q_fa.key_tile(hd)
+    kv_row = [(b // n_q_heads) * n_kv_heads + (b % n_q_heads) // G
+              for b in range(BH)]
+    qf = q.float()
+    kf, vf = k.float()[kv_row], v.float()[kv_row]        # [BH, S, hd]
+    vis = Q_fa.attention_mask(Lq, S, causal=causal, window=window,
+                              q_offset=q_offset)
+    out = torch.zeros(BH, Lq, hd)
+    for r0, r1, tiles, masked, _ in Q_fa.tile_plan(
+            Lq, S, hd, causal=causal, window=window, q_offset=q_offset):
+        if r1 <= r0:
+            continue
+        m = torch.full((BH, r1 - r0), -1e30)
+        l = torch.zeros(BH, r1 - r0)
+        o = torch.zeros(BH, r1 - r0, hd)
+        for t in tiles:
+            k0, k1 = t * bk, min(S, t * bk + bk)
+            s = qf[:, r0:r1] @ kf[:, k0:k1].transpose(1, 2)
+            if softcap > 0:
+                x, to_log2 = torch.tanh(s * scale / softcap) * softcap * log2e, 1.0
+            else:
+                x, to_log2 = s, scale * log2e
+            if t in masked:
+                x = torch.where(vis[r0:r1, k0:k1], x, -torch.inf)
+            mx = torch.maximum(m, x.amax(-1) * to_log2)
+            corr = torch.exp2(m - mx)
+            p = torch.exp2(x * to_log2 - mx[..., None])
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + p.to(torch.bfloat16).float() @ vf[:, k0:k1]
+            m = mx
+        out[:, r0:r1] = o / l.clamp(min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+# name: (B, Hq, Hkv, Lq, S, hd, kwargs, Pallas blocks or None)
+WALK_CASES = {
+    "causal-hd64-two-tiles": (1, 4, 2, 256, 256, 64, dict(causal=True), 128),
+    "causal-hd128-mqa": (2, 4, 1, 256, 256, 128, dict(causal=True), 128),
+    "window-hd128-gqa": (1, 8, 2, 384, 384, 128,
+                         dict(causal=True, window=100), 128),
+    "softcap-hd64": (1, 2, 2, 256, 256, 64,
+                     dict(causal=True, softcap=30.0), 128),
+    "noncausal-rect-hd128": (1, 4, 4, 128, 384, 128, dict(causal=False), 128),
+    "ragged-129-hd64": (1, 2, 1, 129, 129, 64, dict(causal=True, window=40),
+                        None),
+    "ragged-300x200-hd128": (1, 4, 2, 300, 200, 128, dict(causal=False),
+                             None),
+    "q-offset-window-hd128": (1, 4, 1, 100, 400, 128,
+                              dict(causal=True, q_offset=300, window=150),
+                              None),
+    "q-offset-softcap-hd64": (2, 4, 2, 130, 290, 64,
+                              dict(causal=True, q_offset=160, softcap=20.0),
+                              None),
+    "hd256-window": (1, 2, 1, 200, 200, 256, dict(causal=True, window=70),
+                     None),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_flash_walk_matches_plain_and_pallas(case):
+    """The kernel's walk on bfloat16 inputs against the plain version and
+    the reference oracle (and the Pallas kernel in interpret mode where its
+    blocks divide the lengths), at the bfloat16 tolerance 2e-2."""
+    B, Hq, Hkv, L, S, hd, kw, blk = WALK_CASES[case]
+    rng = np.random.default_rng(L * 7 + S + hd)
+    qj, qt = both(rng.normal(size=(B * Hq, L, hd)), "bf16")
+    kj, kt = both(rng.normal(size=(B * Hkv, S, hd)), "bf16")
+    vj, vt = both(rng.normal(size=(B * Hkv, S, hd)), "bf16")
+    heads = dict(n_q_heads=Hq, n_kv_heads=Hkv)
+    got = flash_walk(qt, kt, vt, **heads, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    assert relerr(got, Q_fa.flash_attention_plain(qt, kt, vt, **heads,
+                                                  **kw)) < TOL["bf16"]
+    ref = R_ops.flash_attention(qj, kj, vj, **heads, impl="ref", **kw)
+    assert relerr(got, ref) < TOL["bf16"]
+    if blk is not None:
+        pallas = R_ops.flash_attention(qj, kj, vj, **heads, bq=blk, bk=blk,
+                                       **kw)
+        assert relerr(got, pallas) < TOL["bf16"]
+
+
+def test_flash_walk_zeroes_rows_that_see_no_key():
+    """A window and q_offset that put every key out of reach of the first
+    rows: the kernel's walk gives them zeros (the plain version averages V,
+    a documented difference the model never meets); the other rows agree."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((2, 64, 64), (2, 100, 64), (2, 100, 64)))
+    kw = dict(n_q_heads=1, n_kv_heads=1, causal=True, window=10,
+              q_offset=105)      # rows 0-3 see keys 96-99, the rest none
+    got = flash_walk(q, k, v, **kw)
+    want = Q_fa.flash_attention_plain(q, k, v, **kw)
+    sees = Q_fa.attention_mask(64, 100, causal=True, window=10,
+                               q_offset=105).any(-1)
+    assert 0 < int(sees.sum()) < 64
+    assert torch.equal(got[:, ~sees], torch.zeros_like(got[:, ~sees]))
+    assert relerr(got[:, sees], want[:, sees]) < TOL["bf16"]
+
+
+PLAN_CASES = [   # Lq, S, hd, causal, window, q_offset
+    (3072, 3072, 256, True, 2048, 0),     # RecurrentGemma-9B's prefill
+    (3072, 3072, 128, True, 0, 0),        # Qwen3-30B-A3B's prefill
+    (129, 129, 256, True, 2048, 0),
+    (2049, 2049, 128, True, 0, 0),
+    (1000, 1000, 128, True, 300, 0),
+    (300, 1000, 128, True, 500, 700),
+    (67, 257, 128, True, 0, 190),
+    (130, 70, 64, False, 0, 0),
+    (1, 1, 256, True, 2048, 0),
+    (64, 100, 64, True, 10, 105),
+    (300, 1000, 64, True, 500, 700),      # the last item's second consumer
+    (200, 200, 128, True, 0, 0),          #   has no rows
+]
+
+
+@pytest.mark.parametrize("Lq,S,hd,causal,window,q_offset", PLAN_CASES)
+def test_flash_tile_plan(Lq, S, hd, causal, window, q_offset):
+    """Every visible (query, key) pair lies in a key tile its consumer
+    visits; every visited tile holds a visible pair; and a visited tile is
+    masked exactly when it holds a pair of the consumer's rows and a key
+    (past S included) that the row does not see."""
+    bk = Q_fa.key_tile(hd)
+    vis = Q_fa.attention_mask(Lq, S, causal=causal, window=window,
+                              q_offset=q_offset)
+    n_tiles = -(-S // bk)
+    pad = torch.zeros(Lq, n_tiles * bk, dtype=torch.bool)
+    pad[:, :S] = vis
+    per_tile = pad.view(Lq, n_tiles, bk)
+    seen_rows = 0
+    plan = Q_fa.tile_plan(Lq, S, hd, causal=causal, window=window,
+                          q_offset=q_offset)
+    for i, (r0, r1, tiles, masked, walk) in enumerate(plan):
+        # both consumers of an item hand back the same tiles, once each, in
+        # order, and visit their own tiles among them
+        item = [t for t, _ in plan[i - i % 2][4]]
+        assert [t for t, _ in walk] == item == sorted(set(item))
+        assert [t for t, v in walk if v] == tiles
+        rows = per_tile[r0:r1]                        # [rows, tiles, bk]
+        any_vis = rows.any(-1).any(0)                 # [tiles]
+        all_vis = rows.all(-1).all(0)
+        want_tiles = torch.nonzero(any_vis).flatten().tolist()
+        assert tiles == list(range(want_tiles[0], want_tiles[-1] + 1)) \
+            if want_tiles else tiles == []
+        assert all(bool(any_vis[t]) for t in tiles)
+        assert masked == [t for t in tiles if not bool(all_vis[t])]
+        seen_rows += max(0, r1 - r0)
+    assert seen_rows == Lq

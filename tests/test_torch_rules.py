@@ -344,3 +344,16 @@ def test_library_name_follows_source(monkeypatch, tmp_path):
     assert {p.stem for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")} \
         == {"time_flow_lookup", "admission", "flash_attention",
             "decode_attention", "rg_lru", "grouped_matmul"}
+
+
+def test_library_name_follows_headers(monkeypatch, tmp_path):
+    """An edited shared header (``csrc/*.cuh``) renames every library, so
+    no stale build of a source that includes it is loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    first = _build.library_path("k")
+    header.write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert (ROOT / "src" / "repro_torch" / "csrc" / "hopper.cuh").exists()
