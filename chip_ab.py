@@ -7,12 +7,13 @@
 unpacked with ``git archive``). The two trees take turns, base, this,
 this, base, each in its own process that builds that tree's kernels and
 times, with that tree's ``chip_smoke.graph_ms`` on the same seeded inputs:
-flash attention at RecurrentGemma-9B's and Qwen3-30B-A3B's prefill shapes,
-and admission at the fabric's 131,072 packets with 11,772 and 108 keys and
-on one packet (its launch floor). With ``--profile`` each turn also runs
-``chip_smoke.profile_serve`` on Qwen3-30B-A3B (phase 16's profile of a
-full-depth prefill and 8 decode steps). Prints one JSON line per turn and
-the card's name and power limit.
+the RG-LRU scan at RecurrentGemma-9B's prefill shape (B 4, L 3,072, W
+4,096), flash attention at RecurrentGemma-9B's and Qwen3-30B-A3B's prefill
+shapes, and admission at the fabric's 131,072 packets with 11,772 and 108
+keys and on one packet (its launch floor). With ``--profile`` each turn
+also runs ``chip_smoke.profile_serve`` on RecurrentGemma-9B (phase 11's
+profile of a full-depth prefill and 8 decode steps). Prints one JSON line
+per turn and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -32,8 +33,12 @@ sys.path.insert(0, root)
 sys.path.insert(0, root + "/src")
 import chip_smoke as cs
 from repro_torch.kernels import admission as adm, flash_attention as fa
+from repro_torch.kernels import rg_lru as rl
 dev = torch.device("cuda")
 t = {}
+a, b = cs.rglru_inputs(dev, 4, 3072, 4096, 64)
+t["rg_lru_ms"] = cs.graph_ms(lambda: rl.rg_lru(a, b))
+del a, b
 for tag, (B, Hq, Hkv, L, S, hd, kw) in (
         ("flash_rg", (4, 16, 1, 3072, 3072, 256, dict(causal=True, window=2048))),
         ("flash_qwen", (4, 32, 4, 3072, 3072, 128, dict(causal=True)))):
@@ -57,7 +62,7 @@ t["adm_floor_ms"] = cs.graph_ms(lambda: adm.admission_admit(
     key[:1], size[:1], want[:1], cap, num_keys=NK))
 print("TIMES " + json.dumps(t), flush=True)
 if profile:
-    prof = cs.profile_serve(dev, "qwen3-moe-30b-a3b", 16)
+    prof = cs.profile_serve(dev, "recurrentgemma-9b", 11)
     print("PROFILE " + json.dumps(prof), flush=True)
 """
 

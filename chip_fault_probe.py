@@ -5,15 +5,17 @@
 
 Shows whether the checks of phase 2 (admission against its plain
 version, bit for bit), phase 7 (flash attention and flash-decode against
-their plain versions, per output row), phase 12 (the grouped matmul
-against its plain version, per output row) and phase 15 (a 4-layer
-full-width Qwen3-30B-A3B through the kernels against the plain versions)
-catch a wrong kernel. For the unchanged tree and for each planted fault,
-``src/`` and ``chip_smoke.py`` are copied into a temporary directory, the
-fault is planted by an exact text substitution in one CUDA source, and the
-checks run there in a subprocess; their output is printed, tagged with the
-fault. Exits non-zero when a sound check fails, or when a faulty kernel
-passes every phase named for it.
+their plain versions, per output row; the RG-LRU scan against its plain
+version, whole and per channel, and replayed from a CUDA graph), phase 12
+(the grouped matmul against its plain version, per output row) and phase
+15 (a 4-layer full-width Qwen3-30B-A3B through the kernels against the
+plain versions) catch a wrong kernel. For the unchanged tree and for each
+planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
+directory, the fault is planted by an exact text substitution in one
+source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
+a subprocess; their output is printed, tagged with the fault. Exits
+non-zero when a sound check fails, or when a faulty kernel passes every
+phase named for it.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ ROOT = Path(__file__).resolve().parent
 CSRC = Path("src/repro_torch/csrc")
 GMM, DECODE = CSRC / "grouped_matmul.cu", CSRC / "decode_attention.cu"
 FLASH, ADM = CSRC / "flash_attention.cu", CSRC / "admission.cu"
+RG, RG_WRAPPER = CSRC / "rg_lru.cu", Path("src/repro_torch/kernels/rg_lru.py")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -67,6 +70,27 @@ FAULTS = {
         ADM, "if (k >= 0 && last[u]) run[k] = r + grp[u];",
         "if (k >= 0 && last[u] && s0 + u != 1) run[k] = r + grp[u];",
         ("phase 2",)),
+    # the scan's look-back leaves the nearest predecessor's h aggregate out
+    # of its fold, whenever that predecessor had not yet published its
+    # inclusive prefix
+    "look-back skips one aggregate": (
+        RG, "acc_h = fmaf(acc_a, load_relaxed(agg_h + pj), acc_h);",
+        "if (j != ticket - chains) "
+        "acc_h = fmaf(acc_a, load_relaxed(agg_h + pj), acc_h);",
+        ("phase 7",)),
+    # the wrapper zeroes the scan's flags and ticket counter only when it
+    # first makes them for a shape, and reuses them after: a graph replay
+    # then starts from the previous call's flags
+    "flags and ticket not zeroed per call": (
+        RG_WRAPPER,
+        "scratch = torch.zeros(1 + n, dtype=torch.int32, device=a.device)",
+        "scratch = globals().setdefault(f\"_stale_{n}\", torch.zeros("
+        "1 + n, dtype=torch.int32, device=a.device))", ("phase 7",)),
+    # the last time tile of a length no tile divides is one step short
+    "last partial tile one step short": (
+        RG, "const int32_t t0 = tt * kT, nt = min(kT, L - t0);",
+        "const int32_t t0 = tt * kT, nt = min(kT, L - t0) - (L - t0 < kT);",
+        ("phase 7",)),
 }
 CHECKS = """
 import sys, torch
@@ -90,10 +114,11 @@ except SystemExit as e:
     failed.append("phase 2")
 for phase, check, tol in (("phase 7", cs.check_flash, cs.FLASH_TOL),
                           ("phase 7", cs.check_decode, cs.DECODE_TOL),
+                          ("phase 7", cs.check_rg_lru, cs.RGLRU_TOL),
                           ("phase 12", cs.check_gmm, cs.GMM_TOL)):
     try:
         err, _ = check(dev)
-        print(f"{phase} {check.__name__} largest row relerr {err:.3e} "
+        print(f"{phase} {check.__name__} largest relerr {err:.3e} "
               f"(limit {tol:.1e})")
         if err > tol and phase not in failed:
             failed.append(phase)
@@ -141,6 +166,16 @@ def last_split_caught(text: str) -> bool:
     return bool(errs) and all(e > cs.DECODE_TOL for e in errs)
 
 
+def graph_replay_caught(text: str) -> bool:
+    """Whether both of phase 7's graph replays of the scan read above the
+    limit, whole or per channel."""
+    import chip_smoke as cs
+    reads = [max(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        re.escape(cs.RGLRU_GRAPH) + r" \d: relerr ([0-9.e+-]+|inf), per "
+        r"channel ([0-9.e+-]+|inf)", text)]
+    return len(reads) == 2 and all(e > cs.RGLRU_TOL for e in reads)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -157,6 +192,8 @@ def main() -> int:
                 caught = any(p in verdict for p in fault[3])
                 if fault[0] == DECODE:
                     caught &= last_split_caught(text)
+                if fault[0] == RG_WRAPPER:
+                    caught &= graph_replay_caught(text)
             print(f"{name}: {verdict} -> "
                   f"{'as required' if caught else 'NOT as required'}",
                   flush=True)

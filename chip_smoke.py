@@ -36,9 +36,13 @@ Phases, each fatal on failure:
    ring; the scan at B = 4, L = 3,072, W = 4,096), at Qwen3-30B-A3B's
    decode shape and at edge shapes (among them a cache whose only visible
    slot lies in flash-decode's last split, and query and key lengths one
-   past flash attention's tiles). A NaN fails every limit.
+   past flash attention's tiles). The scan also at the edges of its time
+   tiles and channel stripes, with channels whose carry outlives many
+   tiles, per channel as well as whole, and for one call captured in a
+   CUDA graph and replayed twice on new inputs. A NaN fails every limit.
 8. Time them as phase 3 does, beside their bounds, their plain versions
-   and ``scaled_dot_product_attention`` on the same inputs; flash attention
+   and ``scaled_dot_product_attention`` on the same inputs (the scan beside
+   one elementwise kernel that moves the same bytes); flash attention
    at both models' prefill shapes (Qwen3-30B-A3B's beside SDPA's own causal
    mask), flash-decode at both models' decode shapes.
 9. Serve RecurrentGemma-9B at full width and depth (38 layers, random
@@ -52,8 +56,9 @@ Phases, each fatal on failure:
    weights and tokens through the plain versions, holding each step's
    logits by their largest and by their RMS error.
 11. Profile one full-width prefill and 8 decode steps of RecurrentGemma-9B:
-   device time by kernel and by layer, and the device's idle share against
-   the wall time of the same work without the profiler.
+   device time by kernel and by layer (the scan's own line: its ms a
+   prefill), and the device's idle share against the wall time of the same
+   work without the profiler.
 12. Hold the grouped matmul kernel (the MoE expert products) against its
    plain version on the card, per output row: at the four shapes of
    Qwen3-30B-A3B's MoE path (128 experts; M = 960 at prefill, 1 at decode;
@@ -437,27 +442,86 @@ def check_decode(dev):
     return worst, worst_abs
 
 
-def rglru_inputs(dev, B, L, W, seed):
+def rglru_inputs(dev, B, L, W, seed, slow=False):
+    """a in [0.2, 0.999), b standard normal. ``slow``: a in [0.999, 1) on
+    the odd channels, where a carry outlives dozens of the kernel's time
+    tiles (as RG-LRU's slowest channels do), so that a carry the look-back
+    drops or folds wrongly shows."""
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.rand(B, L, W, generator=g, device=dev) * 0.799 + 0.2
     b = torch.randn(B, L, W, generator=g, device=dev)
+    if slow:
+        a[..., 1::2] = 1 - torch.rand(B, L, W // 2, generator=g,
+                                      device=dev) * 1e-3
     return a, b
 
 
+def chan_relerr(a, b) -> float:
+    """The largest over channels (b, w) of max_t |a - b| / max_t |b|: the
+    scan's per-channel error. A whole-tensor max |b| would hide a dropped
+    carry in a quiet channel."""
+    a, b = a.float(), b.float()
+    return finite_or_inf(float(((a - b).abs().amax(1)
+                                / (b.abs().amax(1) + 1e-6)).max()))
+
+
+RGLRU_GRAPH = "graph replay"
+
+
 def check_rg_lru(dev):
+    """Kernel vs plain version, whole tensor and per channel: at the full
+    width, at the edges of the kernel's time tiles and channel stripes, and
+    for one call captured in a CUDA graph and replayed on new inputs.
+    Returns the largest of both errors and the largest absolute error."""
     from repro_torch.kernels import rg_lru as rl
-    R = RGLRU_FULL
-    cases = [("full B=4 L=3072 W=4096", R["B"], R["L"], R["W"]),
-             ("L=1", 2, 1, 4096), ("ragged L=1001 W=100", 3, 1001, 100),
-             ("B=1 L=9 W=1", 1, 9, 1)]
+    R, T = RGLRU_FULL, rl.TILE_T
+    cases = [("full B=4 L=3072 W=4096", R["B"], R["L"], R["W"], False),
+             ("L=1", 2, 1, 4096, False),
+             ("ragged L=1001 W=100", 3, 1001, 100, False),
+             ("B=1 L=9 W=1", 1, 9, 1, False)]
+    # slow channels: a tile's carry reaches far past its successor
+    cases += [("full B=4 L=3072 W=4096 slow", R["B"], R["L"], R["W"], True)]
+    cases += [(f"L={L} (T={T}) W=4096 slow", 2, L, 4096, True)
+              for L in (T - 1, T, T + 1, 3 * T - 1)]
+    cases += [(f"L=3072 W={W} slow", 2, 3072, W, True) for W in (100, 4097)]
+    # W % 4 == 0 but the bases 4 bytes off 16-byte alignment: the kernel's
+    # 4-byte loads and stores
+    cases += [("L=200 W=256 slow, unaligned bases", 2, 200, 256, True)]
     worst = worst_abs = 0.0
-    for i, (name, B, L, W) in enumerate(cases):
-        a, b = rglru_inputs(dev, B, L, W, 50 + i)
+    for i, (name, B, L, W, slow) in enumerate(cases):
+        a, b = rglru_inputs(dev, B, L, W, 50 + i, slow)
+        if "unaligned" in name:
+            a, b = (torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
+                    .copy_(x) for x in (a, b))
         got, want = rl.rg_lru(a, b), rl.rg_lru_plain(a, b)
         torch.cuda.synchronize()
-        e, ea = relerr(got, want), abserr(got, want)
-        log(f"  rg_lru {name}: relerr {e:.2e}, max abs err {ea:.2e}")
-        worst, worst_abs = max(worst, e), max(worst_abs, ea)
+        e, ec, ea = relerr(got, want), chan_relerr(got, want), abserr(got, want)
+        log(f"  rg_lru {name}: relerr {e:.2e}, per channel {ec:.2e}, "
+            f"max abs err {ea:.2e}")
+        worst, worst_abs = max(worst, e, ec), max(worst_abs, ea)
+    # one call captured on fixed buffers after an eager call of the same
+    # shape; each replay must start from zeroed flags and ticket
+    a, b = rglru_inputs(dev, R["B"], R["L"], R["W"], 70, True)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        rl.rg_lru(a, b)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rl.rg_lru(a, b)
+    for r in range(2):
+        a_r, b_r = rglru_inputs(dev, R["B"], R["L"], R["W"], 71 + r, True)
+        a.copy_(a_r)
+        b.copy_(b_r)
+        g.replay()
+        torch.cuda.synchronize()
+        want = rl.rg_lru_plain(a_r, b_r)
+        e, ec, ea = relerr(out, want), chan_relerr(out, want), abserr(out, want)
+        log(f"  rg_lru {RGLRU_GRAPH} {r + 1}: relerr {e:.2e}, per channel "
+            f"{ec:.2e}, max abs err {ea:.2e}")
+        worst, worst_abs = max(worst, e, ec), max(worst_abs, ea)
+    del g, out, a, b, a_r, b_r, want
     return worst, worst_abs
 
 
@@ -528,6 +592,10 @@ def time_lm_kernels(dev):
                                     repeats=3)
     a1, b1 = a[:1, :1, :1].contiguous(), b[:1, :1, :1].contiguous()
     t["rg_lru_floor_ms"] = graph_ms(lambda: rl.rg_lru(a1, b1))
+    # the scan's bytes (a and b read, one output written) through one
+    # elementwise PyTorch kernel: what streaming them takes on this card.
+    # Another function, so not the scan's library call
+    t["rg_lru_same_bytes_ms"] = graph_ms(lambda: torch.add(a, b))
     rg_bytes, rg_ops = 12 * a.numel(), 2 * a.numel()
     # Qwen3-30B-A3B's prefill shape, beside SDPA's own causal mask (its
     # flash backend, no mask tensor)
@@ -1238,7 +1306,11 @@ def main() -> int:
     check_model_vs_plain(dev)
 
     # -- 11. where the serve path's time goes ----------------------------------
-    profile_serve(dev, "recurrentgemma-9b", 11)
+    rg_prof = profile_serve(dev, "recurrentgemma-9b", 11)
+    rg_group_ms = rg_prof["prefill"]["groups"].get("rg_lru", 0.0)
+    log(f"phase 11 rg_lru group: {rg_group_ms:.3f} ms of device time a "
+        f"prefill (26 calls), {rg_group_ms / rg_prof['prefill']['device_ms']:.2%}"
+        " of the prefill")
 
     # -- 12. grouped matmul vs plain version ----------------------------------
     log("phase 12 grouped matmul vs plain version (bf16, per output row)")
@@ -1325,6 +1397,8 @@ def main() -> int:
             ms=lm_t[f"{key}_ms"], plain_ms=lm_t[f"{key}_plain_ms"],
             **lm_bounds[key], library_ms=lm_t.get(f"{key}_sdpa_ms"),
             launch_floor_ms=lm_t[f"{key}_floor_ms"]))
+    kernels[-1].update(prefill_group_ms=rg_group_ms,
+                       same_bytes_elementwise_ms=lm_t["rg_lru_same_bytes_ms"])
     kernels.append(dict(
         name="grouped_matmul", route="cuda",
         source="src/repro_torch/csrc/grouped_matmul.cu",

@@ -201,6 +201,127 @@ def test_rg_lru_plain_matches_pallas_and_ref(B, L, W, bl, bw):
 
 
 # ---------------------------------------------------------------------------
+# rg_lru: the CUDA kernel's tiles and look-back
+# ---------------------------------------------------------------------------
+
+def scan_emulate(a, b, plan, lag, drop_nearest=False):
+    """``csrc/rg_lru.cu``'s scan in float32 torch, tile by tile in ticket
+    order: each tile's local scan with a zero carry and the running product
+    A_t of a, its published aggregate, the look-back over its time
+    predecessors, and h_t = h_local,t + A_t * carry. ``lag[k]`` is how many
+    of tile k's nearest predecessors had published only their aggregate
+    when it looked back (the next one had its inclusive prefix; the first
+    time tile publishes its prefix at once), so that every interleaving of
+    the look-back is reached. ``drop_nearest`` leaves the nearest
+    predecessor's h aggregate out of the fold, a planted fault."""
+    h = torch.empty_like(a)
+    chains = plan.B * plan.n_stripes
+    agg, incl = {}, {}
+    for k, (bb, tt, ss) in enumerate(plan.order().tolist()):
+        t0, t1 = tt * plan.T, min(plan.L, (tt + 1) * plan.T)
+        c0, c1 = ss * plan.C, min(plan.W, (ss + 1) * plan.C)
+        at, bt = a[bb, t0:t1, c0:c1], b[bb, t0:t1, c0:c1]
+        hl, prod = torch.zeros(c1 - c0), torch.ones(c1 - c0)
+        local, cum = torch.empty_like(at), torch.empty_like(at)
+        for t in range(t1 - t0):
+            hl = at[t] * hl + bt[t]
+            prod = prod * at[t]
+            local[t], cum[t] = hl, prod
+        agg[k] = (prod, hl)
+        carry = torch.zeros(c1 - c0)
+        acc_a, acc_h = torch.ones(c1 - c0), torch.zeros(c1 - c0)
+        j = k - chains
+        for step in range(tt):
+            if step == lag[k] or j < chains:
+                carry = acc_a * incl[j] + acc_h
+                break
+            if not (drop_nearest and j == k - chains):
+                acc_h = acc_a * agg[j][1] + acc_h
+            acc_a = acc_a * agg[j][0]
+            j -= chains
+        incl[k] = prod * carry + hl
+        h[bb, t0:t1, c0:c1] = local + cum * carry
+    return h
+
+
+def slow_decay_inputs(rng, B, L, W):
+    """a in [0.2, 0.999) on even channels and in [0.999, 1) on odd ones,
+    where a carry outlives many tiles (as RG-LRU's slowest channels do), so
+    that a carry dropped or folded wrongly shows; b standard normal."""
+    a = rng.uniform(0.2, 0.999, size=(B, L, W))
+    a[..., 1::2] = rng.uniform(0.999, 1.0, size=a[..., 1::2].shape)
+    return (a.astype(np.float32),
+            rng.normal(size=(B, L, W)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("W", [1, 100, 200, 4 * Q_rl.TILE_C + 3])
+@pytest.mark.parametrize("L", [1, Q_rl.TILE_T - 1, Q_rl.TILE_T,
+                               Q_rl.TILE_T + 1, 3 * Q_rl.TILE_T - 1])
+def test_rg_lru_scan_emulation_matches_plain_pallas_and_ref(B, L, W):
+    """The kernel's tiles and look-back, with a random look-back depth per
+    tile, against the plain version, the reference oracle and the Pallas
+    kernel (interpret mode, one block), at the scan tolerance 1e-4."""
+    rng = np.random.default_rng(B * 10_000 + L * 1_000 + W)
+    a, b = slow_decay_inputs(rng, B, L, W)
+    plan = Q_rl.scan_plan(B, L, W)
+    lag = [int(rng.integers(0, t + 1)) for _, t, _ in plan.order().tolist()]
+    got = scan_emulate(torch.tensor(a), torch.tensor(b), plan, lag)
+    assert got.dtype == torch.float32 and got.shape == (B, L, W)
+    assert relerr(got, Q_rl.rg_lru_plain(torch.tensor(a),
+                                         torch.tensor(b))) < 1e-4
+    ref = R_ops.rg_lru(jnp.asarray(a), jnp.asarray(b), impl="ref")
+    assert relerr(got, ref) < 1e-4
+    pallas = R_ops.rg_lru(jnp.asarray(a), jnp.asarray(b), bl=L, bw=W)
+    assert relerr(got, pallas) < 1e-4
+
+
+def test_rg_lru_scan_emulation_sees_a_dropped_aggregate():
+    """The inputs show a look-back that skips one aggregate (a fault that
+    chip_fault_probe.py plants in the kernel): with every tile folding all
+    its predecessors' aggregates, the sound walk holds 1e-4, and the walk
+    that leaves out the nearest predecessor's h aggregate does not."""
+    rng = np.random.default_rng(7)
+    B, L, W = 1, 3 * Q_rl.TILE_T - 1, 200
+    a, b = (torch.tensor(x) for x in slow_decay_inputs(rng, B, L, W))
+    plan = Q_rl.scan_plan(B, L, W)
+    want = Q_rl.rg_lru_plain(a, b)
+    lag = [t for _, t, _ in plan.order().tolist()]    # aggregates only
+    assert relerr(scan_emulate(a, b, plan, lag), want) < 1e-4
+    assert relerr(scan_emulate(a, b, plan, lag, drop_nearest=True),
+                  want) > 1e-2
+
+
+@pytest.mark.parametrize("B,L,W", [
+    (4, 3072, 4096),         # RecurrentGemma-9B's prefill
+    (1, 1, 1), (1, 9, 1), (3, 63, 100), (2, 65, 4097), (1, 191, 515),
+    (2, 3072, 100), (5, 200, 129),
+])
+def test_rg_lru_scan_plan(B, L, W):
+    """Every (b, t, w) lies in exactly one tile, and every time predecessor
+    of a tile holds a lower ticket."""
+    plan = Q_rl.scan_plan(B, L, W)
+    assert (plan.T, plan.C) == (Q_rl.TILE_T, Q_rl.TILE_C)
+    order = plan.order()
+    assert order.shape == (plan.n_tiles, 3)
+    # tiles are distinct and their spans partition time and channels
+    assert len({tuple(x) for x in order.tolist()}) == plan.n_tiles
+    assert set(order[:, 0].tolist()) == set(range(B))
+    assert (plan.n_time - 1) * plan.T < L <= plan.n_time * plan.T
+    assert (plan.n_stripes - 1) * plan.C < W <= plan.n_stripes * plan.C
+    if B * L * W <= 200_000:
+        cover = np.zeros((B, L, W), np.int32)
+        for bb, tt, ss in order.tolist():
+            cover[bb, tt * plan.T:(tt + 1) * plan.T,
+                  ss * plan.C:(ss + 1) * plan.C] += 1
+        assert (cover == 1).all()
+    ticket = {tuple(x): k for k, x in enumerate(order.tolist())}
+    for k, (bb, tt, ss) in enumerate(order.tolist()):
+        if tt > 0:
+            assert ticket[(bb, tt - 1, ss)] < k
+
+
+# ---------------------------------------------------------------------------
 # grouped_matmul
 # ---------------------------------------------------------------------------
 
