@@ -9,8 +9,15 @@ this, base, each in its own process that builds that tree's kernels and
 times, with that tree's ``chip_smoke.graph_ms`` on the same seeded inputs:
 the RG-LRU scan at RecurrentGemma-9B's prefill shape (B 4, L 3,072, W
 4,096), flash attention at RecurrentGemma-9B's and Qwen3-30B-A3B's prefill
-shapes, and admission at the fabric's 131,072 packets with 11,772 and 108
-keys and on one packet (its launch floor). With ``--profile`` each turn
+shapes, admission at the fabric's 131,072 packets with 11,772 and 108
+keys and on one packet (its launch floor), and the time-flow lookup in the
+TPU's form (a hash vector, no mask, over the tables that tree's
+``stack_tables`` builds) at 131,072 packets and on one packet. Each turn
+also runs ``chip_smoke.py``'s phase-6 window (slices 24-39 of the default
+108-ToR fabric, after slices 0-23) and reports its wall ms per slice
+without the profiler (three runs), and its device ms, wall ms, CUDA
+kernels launched and the twelve costliest kernels per slice under the
+profiler. With ``--profile`` each turn
 also runs ``chip_smoke.profile_serve`` on RecurrentGemma-9B (phase 11's
 profile of a full-depth prefill and 8 decode steps). Prints one JSON line
 per turn and the card's name and power limit.
@@ -26,8 +33,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 TURN = r"""
-import json, sys
+import json, sys, time
 import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile as torch_profile
 root, profile = sys.argv[1], sys.argv[2] == "1"
 sys.path.insert(0, root)
 sys.path.insert(0, root + "/src")
@@ -60,6 +69,59 @@ t["adm_rx_ms"] = cs.graph_ms(lambda: adm.admission_admit(
     rx_key, size, want, room, num_keys=N))
 t["adm_floor_ms"] = cs.graph_ms(lambda: adm.admission_admit(
     key[:1], size[:1], want[:1], cap, num_keys=NK))
+from repro_torch.core import FabricConfig, FabricTables, round_robin, synthesize, vlb
+from repro_torch.core.fabric import (_device_arrays, _init_state, _make_step,
+                                     stack_tables)
+from repro_torch.kernels import time_flow_lookup as tfl
+sched = round_robin(N, 1)
+routing = vlb(sched, kpaths=4)
+i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+tables = stack_tables(i32(routing.inj_next), i32(routing.inj_dep),
+                      i32(routing.tf_next), i32(routing.tf_dep))
+tn, td = tables if isinstance(tables, tuple) else (tables, None)
+rng = np.random.default_rng(5)
+node, dst = t32(rng.integers(0, N, P)), t32(rng.integers(0, N, P))
+hv, sel = t32(rng.integers(-2 ** 31, 2 ** 31, P)), t32(rng.integers(0, 2, P))
+t["tfl_ms"] = cs.graph_ms(lambda: tfl.time_flow_lookup(
+    tn, td, 5, sel, node, dst, hv))
+t["tfl_floor_ms"] = cs.graph_ms(lambda: tfl.time_flow_lookup(
+    tn, td, 5, sel[:1], node[:1], dst[:1], hv[:1]))
+del tables, tn, td
+wl = synthesize("rpc", N, 64, slice_bytes=75_000, load=0.4,
+                max_packets=1 << 17, seed=0)
+j = _device_arrays(FabricTables.build(sched, routing), wl, dev)
+step = _make_step(j, FabricConfig(), per_packet_mp=True)
+
+
+def window(prof=None):
+    state = _init_state(j, wl.num_flows)
+    for s in range(24):
+        step(state, s)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    for s in range(24, 40):
+        step(state, s)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 16
+    if prof is not None:
+        prof.stop()
+    return wall
+
+
+t["window_wall_ms"] = [window() for _ in range(3)]
+prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+t["window_profiled_wall_ms"] = window(prof)
+ev = [e for e in prof.key_averages()
+      if e.device_type == DeviceType.CUDA and cs.self_device_ms(e) > 0]
+ev.sort(key=lambda e: -cs.self_device_ms(e))
+t["window_top_kernels"] = [(e.key[:90], e.count / 16,
+                            cs.self_device_ms(e) * 1e3 / 16) for e in ev[:12]]
+t["window_device_ms"] = sum(cs.self_device_ms(e) for e in ev) / 16
+t["window_idle"] = 1 - t["window_device_ms"] / t["window_profiled_wall_ms"]
+t["window_kernels"] = sum(e.count for e in ev if not e.key.startswith(
+    ("Memcpy", "Memset"))) / 16
 print("TIMES " + json.dumps(t), flush=True)
 if profile:
     prof = cs.profile_serve(dev, "recurrentgemma-9b", 11)

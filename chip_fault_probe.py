@@ -3,8 +3,8 @@
 
     python3 chip_fault_probe.py
 
-Shows whether the checks of phase 2 (admission against its plain
-version, bit for bit), phase 7 (flash attention and flash-decode against
+Shows whether the checks of phase 2 (admission and the time-flow lookup
+against their plain versions, bit for bit), phase 7 (flash attention and flash-decode against
 their plain versions, per output row; the RG-LRU scan against its plain
 version, whole and per channel, and replayed from a CUDA graph), phase 12
 (the grouped matmul against its plain version, per output row) and phase
@@ -13,7 +13,8 @@ plain versions) catch a wrong kernel. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
-a subprocess; their output is printed, tagged with the fault. Exits
+a subprocess (every phase for the unchanged tree, the phases named for the
+fault otherwise); their output is printed, tagged with the fault. Exits
 non-zero when a sound check fails, or when a faulty kernel passes every
 phase named for it.
 """
@@ -31,6 +32,8 @@ CSRC = Path("src/repro_torch/csrc")
 GMM, DECODE = CSRC / "grouped_matmul.cu", CSRC / "decode_attention.cu"
 FLASH, ADM = CSRC / "flash_attention.cu", CSRC / "admission.cu"
 RG, RG_WRAPPER = CSRC / "rg_lru.cu", Path("src/repro_torch/kernels/rg_lru.py")
+TFL = CSRC / "time_flow_lookup.cu"
+PHASES = ("phase 2", "phase 7", "phase 12", "phase 15")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -91,31 +94,57 @@ FAULTS = {
         RG, "const int32_t t0 = tt * kT, nt = min(kT, L - t0);",
         "const int32_t t0 = tt * kT, nt = min(kT, L - t0) - (L - t0 < kT);",
         ("phase 7",)),
+    # the lookup's store skips the packets outside the mask, which keep
+    # whatever their output held instead of (-1, 0)
+    "lookup store skips packets outside the mask": (
+        TFL, "  a.out_next[i] = r.x;\n  a.out_dep[i] = r.y;",
+        "  if (!a.mask || a.mask[i]) a.out_next[i] = r.x, a.out_dep[i] = r.y;",
+        ("phase 2",)),
+    # the in-kernel multipath hash leaves out the salt of the slice, which
+    # shows for every t > 0
+    "lookup hash drops the slice's salt": (
+        TFL, "hash32(static_cast<uint32_t>(i) + a.t * 0x9E3779B9u)",
+        "hash32(static_cast<uint32_t>(i))", ("phase 2",)),
+    # the scalar row loads (K of 1 or 3) read the departure row one slot
+    # late for odd K
+    "lookup scalar route reads the departure row off by one for odd K": (
+        TFL, "rd[k] = __ldg(a.rows_dep + e + k);",
+        "rd[k] = __ldg(a.rows_dep + e + k + (a.K & 1));", ("phase 2",)),
 }
 CHECKS = """
 import sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 import numpy as np
-from repro_torch.core import FabricConfig, round_robin
-from repro_torch.core.fabric import _build_caps_all
+from repro_torch.core import FabricConfig, round_robin, vlb
+from repro_torch.core.fabric import _build_caps_all, stack_tables
 dev = torch.device("cuda")
+phases = sys.argv[2].split(",")
 failed = []
-conn = torch.tensor(np.asarray(round_robin(cs.N_TORS, 1).conn, np.int32),
-                    device=dev)
-caps = _build_caps_all(conn, FabricConfig(), cs.N_TORS)
-try:
-    mis, _ = cs.check_admission(dev, caps[0].cpu().numpy())
-    print(f"phase 2 admission mismatches {mis}")
-    if mis:
-        failed.append("phase 2")
-except SystemExit as e:
-    print(f"phase 2: {e}")
-    failed.append("phase 2")
+if "phase 2" in phases:
+    sched = round_robin(cs.N_TORS, 1)
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    caps = _build_caps_all(i32(sched.conn), FabricConfig(), cs.N_TORS)
+    r = vlb(sched, kpaths=4)
+    table = stack_tables(i32(r.inj_next), i32(r.inj_dep), i32(r.tf_next),
+                         i32(r.tf_dep))
+    for name, check, arg in (("admission", cs.check_admission,
+                              caps[0].cpu().numpy()),
+                             ("lookup", cs.check_lookup, table)):
+        try:
+            mis, _ = check(dev, arg)
+            print(f"phase 2 {name} mismatches {mis}")
+        except SystemExit as e:
+            print(f"phase 2 {name}: {e}")
+            mis = 1
+        if mis and "phase 2" not in failed:
+            failed.append("phase 2")
 for phase, check, tol in (("phase 7", cs.check_flash, cs.FLASH_TOL),
                           ("phase 7", cs.check_decode, cs.DECODE_TOL),
                           ("phase 7", cs.check_rg_lru, cs.RGLRU_TOL),
                           ("phase 12", cs.check_gmm, cs.GMM_TOL)):
+    if phase not in phases:
+        continue
     try:
         err, _ = check(dev)
         print(f"{phase} {check.__name__} largest relerr {err:.3e} "
@@ -126,10 +155,11 @@ for phase, check, tol in (("phase 7", cs.check_flash, cs.FLASH_TOL),
         print(f"{phase}: {e}")
         if phase not in failed:
             failed.append(phase)
-try:
-    cs.check_qwen_vs_plain(dev)
-except SystemExit:
-    failed.append("phase 15")
+if "phase 15" in phases:
+    try:
+        cs.check_qwen_vs_plain(dev)
+    except SystemExit:
+        failed.append("phase 15")
 print("FAILED:", ", ".join(failed) or "none", flush=True)
 """
 LAST_SPLIT = "one valid slot, in the last split"
@@ -148,7 +178,9 @@ def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
             raise SystemExit(f"{name}: the text to replace is not in "
                              f"{fault[0]} exactly once")
         path.write_text(text.replace(fault[1], fault[2]))
-    out = subprocess.run([sys.executable, "-c", CHECKS, str(copy)],
+    phases = PHASES if fault is None else fault[3]
+    out = subprocess.run([sys.executable, "-c", CHECKS, str(copy),
+                          ",".join(phases)],
                          capture_output=True, text=True, timeout=900)
     text = out.stdout + out.stderr[-2000:]
     for line in text.splitlines():

@@ -12,10 +12,18 @@ Phases, each fatal on failure:
    bit: at the main path's shapes (108 ToRs, K = 4, 131,072 packets;
    admission with 11,772 and 108 keys), at edge shapes, at the edges of
    admission's tiles and steps, and above its shared-memory key limit.
+   The lookup also in the port's form, each call replayed from a CUDA
+   graph whose outputs are poisoned first: the packed table with masks of
+   density 0, 1%, 50% and 100% and all-false masks at odd sizes, the
+   in-kernel hash at six slices, and small tables of every row-load route
+   (K of 1 to 12, the two stacks, unequal injection and transit K).
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
    kernel's launch floor (the same call on one packet); split admission's
-   device time by pass with the profiler.
+   device time by pass with the profiler. The lookup in the TPU's form
+   (two stacks, a hash vector, no mask) and in the port's (the packed
+   table, the in-kernel hash, masks of density 100%, 10% and 1%), and at
+   1 and 4 packets a thread.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -24,9 +32,11 @@ Phases, each fatal on failure:
 5. Re-run the first 48 slices of both configurations on the CPU (the plain
    versions) and require every ``SimResult`` field equal to the card's run.
 6. Profile 16 steady-state slices of the main path: device time by
-   kernel, and the device's idle share against the wall time of the same
+   kernel, the kernels launched per slice, the lookup's device time per
+   call, and the device's idle share against the wall time of the same
    profiled run. The same slices run once more without the profiler, to
-   show what the profiler adds to the wall time.
+   show what the profiler adds to the wall time, and once more to read
+   the lookups' mask densities.
 7. Hold the language-model kernels (flash attention, flash-decode, the
    RG-LRU scan) against their plain versions on the card, within the
    tolerances of ``tests/test_kernels.py`` (per output row for the
@@ -160,10 +170,41 @@ def mismatch(a, b) -> tuple[int, int]:
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
 
-def check_lookup(dev, stk_n, stk_d):
-    """Kernel vs plain version for the lookup over the main-path shape and
-    the edge shapes; returns (mismatches, max error)."""
+def poisoned(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph of the call, its
+    output tensors filled with a sentinel before the replay: an output the
+    kernel leaves unwritten keeps the sentinel."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    for o in out:
+        o.fill_(0x5A5A5A5A)
+    g.replay()
+    return out
+
+
+def lookup_tables(n, k, lead=(2, 3), seed=1):
+    """Small random tables with contiguous valid slots, empty rows
+    included: (next-hop, departure) numpy arrays of ``lead + (n, n, k)``."""
+    rng = np.random.default_rng(seed)
+    nv = rng.integers(0, k + 1, size=lead + (n, n))
+    tn = np.where(np.arange(k) < nv[..., None],
+                  rng.integers(0, n, lead + (n, n, k)), -1)
+    td = np.where(tn >= 0, rng.integers(0, 8, lead + (n, n, k)), 0)
+    return tn.astype(np.int32), td.astype(np.int32)
+
+
+def check_lookup(dev, table):
+    """Kernel vs plain version for the lookup: the TPU's form (two stacks,
+    a hash vector, no mask) over the main-path shape and the edge shapes,
+    then the packed table with masks, the in-kernel hash and every row-load
+    route (K of 1 to 12, unequal injection and transit K), each of these
+    run from a CUDA graph whose outputs are poisoned first; returns
+    (mismatches, max error)."""
+    from repro_torch.core.fabric import stack_tables
     from repro_torch.kernels import time_flow_lookup as tfl
+
+    t32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
 
     def case(tn, td, P, seed, per_packet=True):
         rng = np.random.default_rng(seed)
@@ -181,15 +222,38 @@ def check_lookup(dev, stk_n, stk_d):
         res = [mismatch(g, w) for g, w in zip(got, want)]
         return sum(r[0] for r in res), max(r[1] for r in res)
 
+    def new_case(tbl, P, seed, density=None, t=None):
+        """The port's form on ``tbl`` (packed, or a (next, dep) pair):
+        a mask of the given density (None: no mask), the in-kernel hash of
+        slice t (None: a hash vector); the plain version gets the hash
+        vector ``salted_hash`` makes for t."""
+        rng = np.random.default_rng(seed)
+        tn, td = (tbl, None) if isinstance(tbl, torch.Tensor) else tbl
+        Tr, N, D = tn.shape[1:4]
+        node, dst = t32(rng.integers(0, N, P)), t32(rng.integers(0, D, P))
+        sel = t32(rng.integers(0, 2, P))
+        mask = None if density is None else torch.tensor(
+            rng.random(P) < density, device=dev)
+        tm = int(rng.integers(0, Tr))
+        if t is None:
+            hv = t32(rng.integers(-2 ** 31, 2 ** 31, P))
+            hv_plain = hv
+        else:
+            hv = t
+            hv_plain = tfl.salted_hash(
+                torch.arange(P, dtype=torch.int64, device=dev), t)
+        got = poisoned(lambda: tfl.time_flow_lookup(tn, td, tm, sel, node,
+                                                    dst, hv, mask=mask))
+        want = tfl.time_flow_lookup_plain(tn, td, tm, sel, node, dst,
+                                          hv_plain, mask)
+        torch.cuda.synchronize()
+        res = [mismatch(g, w) for g, w in zip(got, want)]
+        return sum(r[0] for r in res), max(r[1] for r in res)
+
+    stk_n = table[..., 0, :].contiguous()
+    stk_d = table[..., 1, :].contiguous()
     # small random tables with contiguous valid slots, including empty rows
-    rng = np.random.default_rng(1)
-    n, k = 10, 4
-    nv = rng.integers(0, k + 1, size=(2, 3, n, n))
-    slot = np.arange(k)
-    small_n = np.where(slot < nv[..., None], rng.integers(0, n, (2, 3, n, n, k)), -1)
-    small_d = np.where(small_n >= 0, rng.integers(0, 8, (2, 3, n, n, k)), 0)
-    sn = torch.tensor(small_n, dtype=torch.int32, device=dev)
-    sd = torch.tensor(small_d, dtype=torch.int32, device=dev)
+    sn, sd = (t32(a) for a in lookup_tables(10, 4))
     cases = [("main P=131072 fused", stk_n, stk_d, 1 << 17, True),
              ("main P=131072 transit", stk_n, stk_d, 1 << 17, False)]
     for P in (1, 7, 255, 4097):
@@ -198,6 +262,36 @@ def check_lookup(dev, stk_n, stk_d):
     total, worst = 0, 0
     for i, (name, tn, td, P, per_packet) in enumerate(cases):
         m, e = case(tn, td, P, seed=100 + i, per_packet=per_packet)
+        log(f"  lookup {name}: mismatches={m}")
+        total, worst = total + m, max(worst, e)
+
+    new_cases = []
+    for d in (0.0, 0.01, 0.5, 1.0):
+        new_cases.append((f"packed P=131072 mask density {d}", table,
+                          1 << 17, dict(density=d)))
+    for P in (1, 7, 255, 4097):
+        new_cases.append((f"packed P={P} all-false mask", table, P,
+                          dict(density=0.0)))
+    for t in (0, 1, 107, 213, 65_536, 2 ** 31 - 1):
+        new_cases.append((f"packed P=131072 in-kernel hash t={t}", table,
+                          1 << 17, dict(t=t)))
+    new_cases.append(("packed P=131072 in-kernel hash t=213, mask 0.5",
+                      table, 1 << 17, dict(t=213, density=0.5)))
+    for k in (1, 2, 3, 4, 6, 8, 12):
+        tn, td = lookup_tables(10, k, seed=k)
+        packed = t32(np.stack([tn, td], axis=4))
+        new_cases.append((f"small K={k} packed", packed, 4097,
+                          dict(density=0.5, t=7)))
+        new_cases.append((f"small K={k} stacks", (t32(tn), t32(td)), 4097,
+                          dict(density=0.5)))
+    for k_inj, k_tf in ((3, 1), (2, 4)):
+        inj, tf = lookup_tables(10, k_inj, (3,), 20), lookup_tables(10, k_tf,
+                                                                    (3,), 21)
+        padded = stack_tables(*(t32(a) for a in inj + tf))
+        new_cases.append((f"small K inj {k_inj} transit {k_tf} padded",
+                          padded, 4097, dict(density=0.5, t=9)))
+    for i, (name, tbl, P, kw) in enumerate(new_cases):
+        m, e = new_case(tbl, P, seed=200 + i, **kw)
         log(f"  lookup {name}: mismatches={m}")
         total, worst = total + m, max(worst, e)
     return total, worst
@@ -1101,8 +1195,11 @@ def main() -> int:
     sched = round_robin(N_TORS, 1)
     routing = vlb(sched, kpaths=4)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
-    stk_n, stk_d = stack_tables(i32(routing.inj_next), i32(routing.inj_dep),
-                                i32(routing.tf_next), i32(routing.tf_dep))
+    table = stack_tables(i32(routing.inj_next), i32(routing.inj_dep),
+                         i32(routing.tf_next), i32(routing.tf_dep))
+    # the TPU's form: the two [2, Tr, N, D, K] stacks
+    stk_n = table[..., 0, :].contiguous()
+    stk_d = table[..., 1, :].contiguous()
     caps = _build_caps_all(i32(sched.conn), FabricConfig(), N_TORS)
     log("phase 2 kernels vs plain versions")
     adm_lib = _build.load("admission", adm._SIGNATURES)
@@ -1110,7 +1207,7 @@ def main() -> int:
         raise SystemExit("admission: the kernel's shared-memory key limit "
                          f"{adm_lib.adm_smem_keys()} is not the wrapper's "
                          f"{adm.SMEM_KEYS}")
-    tfl_mis, tfl_err = check_lookup(dev, stk_n, stk_d)
+    tfl_mis, tfl_err = check_lookup(dev, table)
     adm_mis, adm_err = check_admission(dev, caps[0].cpu().numpy())
     if tfl_mis or adm_mis:
         raise SystemExit(f"kernel mismatches: lookup {tfl_mis}, "
@@ -1146,6 +1243,23 @@ def main() -> int:
     # launch floors: the same calls on one packet
     timings["tfl_floor_ms"] = graph_ms(lambda: tfl.time_flow_lookup(
         stk_n, stk_d, 5, sel[:1], node[:1], dstv[:1], hv[:1]))
+    # the port's form: the packed table, the hash of slice 213 formed in
+    # the kernel, masks of the given densities; the TPU's form through the
+    # packed table
+    masks = {d: torch.tensor(rng.random(P) < d, device=dev)
+             for d in (1.0, 0.1, 0.01)}
+
+    def new_form(d, P=P):
+        return lambda: tfl.time_flow_lookup(table, None, 5, sel[:P],
+                                            node[:P], dstv[:P], 213,
+                                            mask=masks[d][:P])
+    timings["tfl_packed_ms"] = graph_ms(lambda: tfl.time_flow_lookup(
+        table, None, 5, sel, node, dstv, hv))
+    for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1")):
+        timings[f"tfl_new_{tag}_ms"] = graph_ms(new_form(d))
+    timings["tfl_new_floor_ms"] = graph_ms(new_form(1.0, P=1))
+    timings["tfl_new_plain_ms"] = graph_ms(lambda: tfl.time_flow_lookup_plain(
+        table, None, 5, sel, node, dstv, 213, masks[1.0]))
     timings["adm_floor_ms"] = graph_ms(lambda: adm.admission_admit(
         key[:1], size[:1], want[:1], cap, num_keys=NK))
     log("phase 3 timing (ms per call, median): "
@@ -1238,6 +1352,7 @@ def main() -> int:
     # profiler for device time by kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fabric as fabric_mod
     from repro_torch.core.fabric import _device_arrays, _init_state, _make_step
     j = _device_arrays(tables, wl, dev)
     step = _make_step(j, FabricConfig(), per_packet_mp=True)
@@ -1266,11 +1381,38 @@ def main() -> int:
           if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
     ev.sort(key=lambda e: -self_device_ms(e))
     tot = sum(self_device_ms(e) for e in ev)
+    kernels_per_slice = sum(e.count for e in ev if not e.key.startswith(
+        ("Memcpy", "Memset"))) / 16
+    tfl_ev = [e for e in ev if "tfl_kernel" in e.key]
+    tfl_main_us = (sum(self_device_ms(e) for e in tfl_ev) * 1e3
+                   / max(sum(e.count for e in tfl_ev), 1))
+    # the lookups' mask densities, in one more run of slices 0-39 that
+    # syncs at each lookup (outside the timed runs)
+    densities = {"fused": [], "transit": []}
+    real_lookup = fabric_mod.time_flow_lookup
+
+    def recording_lookup(tn, td, tm, sel, *a, mask=None):
+        site = "fused" if isinstance(sel, torch.Tensor) else "transit"
+        densities[site].append(float(mask.float().mean()))
+        return real_lookup(tn, td, tm, sel, *a, mask=mask)
+    fabric_mod.time_flow_lookup = recording_lookup
+    try:
+        run_window()
+    finally:
+        fabric_mod.time_flow_lookup = real_lookup
+    hops = FabricConfig().hops_per_slice
+    main_density = dict(                    # slices 24-39 only
+        fused=statistics.fmean(densities["fused"][24:]),
+        transit=statistics.fmean(densities["transit"][24 * hops:]))
     log(f"phase 6 profile, default config, slices 24-39: device time "
         f"{tot / 16:.4f} ms per slice in {len(ev)} kernels, wall time "
         f"{wall_ms / 16:.4f} ms per slice in the same profiled run "
         f"(device idle share {1 - tot / wall_ms:.3f}); wall time "
-        f"{bare_ms / 16:.4f} ms per slice in a run without the profiler")
+        f"{bare_ms / 16:.4f} ms per slice in a run without the profiler; "
+        f"{kernels_per_slice:.2f} kernels launched per slice; lookup "
+        f"{tfl_main_us:.3f} us per call on the device; mean lookup mask "
+        f"density: fused site {main_density['fused']:.5f}, transit site "
+        f"{main_density['transit']:.5f}")
     for e in ev[:14]:
         log(f"  {self_device_ms(e) / 16:8.4f} ms/slice "
             f"{self_device_ms(e) / tot:6.1%} x{e.count // 16:<4d}/slice "
@@ -1364,6 +1506,17 @@ def main() -> int:
     # check, one step of a per-key running sum, a compare and an add
     tfl_ops, adm_ops = P_MAIN * (6 + K + 3), P_MAIN * 6
 
+    def new_form_bound(d):
+        # the port's form at mask density d: every packet's mask byte and
+        # outputs; node, dst and sel of the packets in the mask; one
+        # packed entry (2K int32) for each of them, at most every entry
+        # of the slice's two tables; the row index, K slot tests, the
+        # hash (10 operations), a modulo and the pick
+        n = int(d * P_MAIN)
+        nbytes = P_MAIN * (1 + 8) + n * 12 + \
+            min(n, 2 * N_TORS * N_TORS) * 2 * K * 4
+        return bound(nbytes, n * (6 + K + 13))
+
     kernels = [
         dict(name="time_flow_lookup", route="cuda",
              source="src/repro_torch/csrc/time_flow_lookup.cu",
@@ -1372,7 +1525,17 @@ def main() -> int:
              max_abs_err=tfl_err, ms=timings["tfl_ms"],
              plain_ms=timings["tfl_plain_ms"],
              **bound(tfl_bytes, tfl_ops),
-             library_ms=None, launch_floor_ms=timings["tfl_floor_ms"]),
+             library_ms=None, launch_floor_ms=timings["tfl_floor_ms"],
+             packed_ms=timings["tfl_packed_ms"],
+             new_form={tag: dict(ms=timings[f"tfl_new_{tag}_ms"],
+                                 mask_density=d, **new_form_bound(d))
+                       for d, tag in ((1.0, "full"), (0.1, "10"),
+                                      (0.01, "1"))},
+             new_form_floor_ms=timings["tfl_new_floor_ms"],
+             new_form_plain_ms=timings["tfl_new_plain_ms"],
+             main_path=dict(mask_density=main_density,
+                            device_us_per_call=tfl_main_us,
+                            kernels_per_slice=kernels_per_slice)),
         dict(name="admission_admit", route="cuda",
              source="src/repro_torch/csrc/admission.cu",
              replaces="src/repro/kernels/admission.py:76",

@@ -18,13 +18,14 @@ results field for field.
   injection / re-lookup site and at the transit lookup, and FIFO admission
   at the per-hop capacity cut and (under push-back) the receiver cut. On a
   CUDA device the step always goes through them; on the CPU it runs their
-  plain versions.
+  plain versions. The lookup reads one packed table, looks up only the
+  packets whose result the step uses (every other packet gets (-1, 0),
+  which no consumer reads), and forms the per-packet multipath hash itself.
 * Aggregates (occupancy map, ``block_until``, ``max_seq``, backlog minima)
   are updated in place with ``index_add_`` / ``scatter_reduce_``; the
   per-packet fields are replaced as in the reference.
-* The uint32 hashes run in int64 masked to 32 bits (this torch has no
-  ``>>``, ``%`` or ``+`` on uint32), with the multiplies split into 16-bit
-  halves so no product leaves int64's range.
+* The uint32 hashes run in int64 masked to 32 bits
+  (:func:`repro_torch.kernels.time_flow_lookup.hash32`).
 * The reference's ``failures``, ``control`` and ``telemetry`` inputs, its
   versioned tables, and its sharded, batched and incremental entry points
   are not ported yet (ROADMAP Queue 1 items 4, 5 and 9).
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels.admission import admission_admit
-from ..kernels.time_flow_lookup import time_flow_lookup
+from ..kernels.time_flow_lookup import salted_hash, time_flow_lookup
 from .routing import CompiledRouting, first_direct_offsets
 from .topology import Schedule
 
@@ -51,7 +52,6 @@ NOT_INJECTED = -1
 DELIVERED = -2
 DROPPED = -3
 
-MASK32 = 0xFFFFFFFF
 _I32 = torch.int32
 
 
@@ -186,33 +186,6 @@ def resolve_device(device=None) -> torch.device:
 # the per-slice machinery
 # ---------------------------------------------------------------------------
 
-def _mul32(x, c: int):
-    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32): the constant is
-    split into 16-bit halves so no product exceeds 2**48."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
-
-
-def _hash32(x):
-    """The reference's ``_hash32`` on int64 tensors: the low 32 bits of
-    ``x`` in, an int64 in [0, 2**32) out."""
-    x = x & MASK32
-    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul32(x ^ (x >> 15), 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _as_bits(x):
-    """An int64 in [0, 2**32) as the int32 with the same 32-bit pattern."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(_I32)
-
-
-def _salted_hash(base, t: int):
-    """The multipath hash of slice ``t``, ``hash32(base + t * 0x9E3779B9)``
-    in uint32 arithmetic, as int32 bits; ``base`` is an int64 tensor."""
-    return _as_bits(_hash32(base + ((t * 0x9E3779B9) & MASK32)))
-
-
 def _build_caps_all(conn, cfg: FabricConfig, N: int):
     """Per-circuit capacity for every slice of the cycle ``[T, N*(N+1)]``,
     keyed loc*(N+1)+peer; key loc*(N+1)+N is the electrical egress."""
@@ -240,14 +213,25 @@ def _pad_k(a, K: int, fill: int):
 
 
 def stack_tables(inj_next, inj_dep, tf_next, tf_dep):
-    """The stacked ``[2, Tr, N, D, K]`` (injection, transit) tables the
-    lookup kernel takes, K padded to the larger of the two with invalid
+    """The packed ``[2, Tr, N, D, 2, K]`` table the lookup kernel takes:
+    selector 0 the injection tables, 1 the transit tables, and for each
+    entry its next-hop row (``[..., 0, :]``) beside its departure row
+    (``[..., 1, :]``). K is padded to the larger of the two with invalid
     slots (-1 / 0), which leaves the valid count, so the slot pick,
     unchanged."""
     K = max(inj_next.shape[-1], tf_next.shape[-1])
-    stk_n = torch.stack([_pad_k(inj_next, K, -1), _pad_k(tf_next, K, -1)])
-    stk_d = torch.stack([_pad_k(inj_dep, K, 0), _pad_k(tf_dep, K, 0)])
-    return stk_n.contiguous(), stk_d.contiguous()
+    nxt = torch.stack([_pad_k(inj_next, K, -1), _pad_k(tf_next, K, -1)])
+    dep = torch.stack([_pad_k(inj_dep, K, 0), _pad_k(tf_dep, K, 0)])
+    return torch.stack([nxt, dep], dim=4).contiguous()
+
+
+def _spread_offsets(off, looked_up, pid):
+    """The lookup's departure offsets, each packet outside ``looked_up``
+    (offset 0) given its own index in their place. No consumer uses those
+    offsets but as calendar-bucket indices, in adds of zero and in gathers:
+    spread over the buckets, the adds no longer queue on one address
+    (atomics on one address serialise)."""
+    return torch.where(looked_up, off, pid)
 
 
 def _init_state(j, num_flows: int):
@@ -286,20 +270,18 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
     Tr = j["tf_next"].shape[0]
     caps_all = _build_caps_all(j["conn"], cfg, N)          # [T, NKEY]
 
-    # stacked (injection, transit) tables for the fused first-phase lookup
-    stk_n, stk_d = stack_tables(j["inj_next"], j["inj_dep"], j["tf_next"],
-                                j["tf_dep"])
+    # packed (injection, transit) tables for the fused first-phase lookup
+    table = stack_tables(j["inj_next"], j["inj_dep"], j["tf_next"],
+                         j["tf_dep"])
 
     size, dst, src = j["size"], j["dst"], j["src"]
     flow, seq, is_eleph = j["flow"], j["seq"], j["is_eleph"]
     hor = max(0, min(cfg.offload_horizon, T2 - 1))
     hor_cols = torch.arange(hor, dtype=torch.int64, device=dev)
-    pid64 = pid.to(torch.int64)
-    # per-flow multipath hashes the flow id unsalted: one hash for the run
-    flow_hash = None if per_packet_mp else _salted_hash(flow.to(torch.int64), 0)
-
-    def mp_hash(t):
-        return _salted_hash(pid64, t) if per_packet_mp else flow_hash
+    # per-flow multipath hashes the flow id unsalted: one hash for the run;
+    # per-packet multipath passes the slice, and the lookup hashes each
+    # packet's index salted with it
+    flow_hash = None if per_packet_mp else salted_hash(flow.to(torch.int64), 0)
 
     def cl(x):
         return x.clamp(0, N - 1)
@@ -334,7 +316,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
     def enqueue_checks(s, arrived, off, t):
         """Congestion detection at enqueue (§5.2) against the carried
         occupancy map: a full calendar queue defers the packet to the next
-        slice (and, with push-back, blocks its source bucket)."""
+        slice (and, with push-back, blocks its source bucket). Only the
+        offsets of ``arrived`` packets count."""
         if not cfg.cc_detect:
             return
         dep_abs = t + off
@@ -349,7 +332,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
                     full.to(_I32) * (t + T))
 
     def step(s, t: int):
-        h = mp_hash(t)
+        h = t if per_packet_mp else flow_hash
         caps = caps_all[t % T]
 
         # -- 0. calendar queues activating this slice leave the occupancy map
@@ -360,11 +343,14 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         ready = (j["t_inject"] <= t) & (s["loc"] == NOT_INJECTED)
         redo = s["relook"] & (s["loc"] >= 0) & (s["dep"] == t)
         # one lookup serves both phases: injection reads the inj table at
-        # src, deferred packets read the transit table at loc
+        # src, deferred packets read the transit table at loc; no other
+        # packet's result is used
         sel = (~ready).to(_I32)
         node = torch.where(ready, src, cl(s["loc"]))
-        nxt_i, off_i = time_flow_lookup(stk_n, stk_d, t % Tr, sel, node, dst,
-                                        h)
+        looked_up = ready | redo
+        nxt_i, off_i = time_flow_lookup(table, None, t % Tr, sel, node, dst,
+                                        h, mask=looked_up)
+        off_i = _spread_offsets(off_i, looked_up, pid)
         nxt_r, off_r = nxt_i, off_i
         if cfg.flow_pausing:
             # elephants wait for the direct circuit of their source ToR
@@ -384,7 +370,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         s["dep"] = torch.where(inject, t + off_i, s["dep"])
         add_(s["occ"], vbucket(s["loc"], t + off_i), size,
              inject & (off_i > 0))
-        enqueue_checks(s, inject, torch.where(inject, off_i, 0), t)
+        enqueue_checks(s, inject, off_i, t)
         n_blocked = (ready & blocked).sum().to(_I32)
         # deferred packets re-enter the pipeline with a fresh action
         s["nxt"] = torch.where(redo, nxt_r, s["nxt"])
@@ -456,8 +442,9 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
             # transit lookup at the new node
             in_transit = moved & ~at_dst
             node_t = cl(s["loc"])
-            nxt_t, off_t = time_flow_lookup(stk_n, stk_d, t % Tr, 1, node_t,
-                                            dst, h)
+            nxt_t, off_t = time_flow_lookup(table, None, t % Tr, 1, node_t,
+                                            dst, h, mask=in_transit)
+            off_t = _spread_offsets(off_t, in_transit, pid)
             s["nxt"] = torch.where(in_transit, nxt_t, s["nxt"])
             s["dep"] = torch.where(in_transit, t + off_t, s["dep"])
             # buffer-overflow drops on arrival; a rejection also pushes the
@@ -471,7 +458,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
             arrived = in_transit & ~overflow
             add_(s["occ"], vbucket(s["loc"], t + off_t), size,
                  arrived & (off_t > 0))
-            enqueue_checks(s, arrived, torch.where(in_transit, off_t, 0), t)
+            enqueue_checks(s, arrived, off_t, t)
 
         # -- 4. packets that missed their slice ------------------------------
         missed = (s["loc"] >= 0) & (s["dep"] == t)

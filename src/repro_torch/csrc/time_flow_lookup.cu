@@ -7,25 +7,52 @@
 // (next hop, departure offset) pair. The plain version is
 // time_flow_lookup_plain in src/repro_torch/kernels/time_flow_lookup.py.
 //
-// What bounds it: bytes. A packet reads node, dst, hash and selector
-// (16 B) and writes two int32 (8 B) that stream through device memory, and
-// gathers one K-slot row of each table (32 B at K = 4). The Pallas kernel
-// keeps one slice's [N, D, K] tables whole in VMEM; at 108 ToRs and K = 4
-// the injection and transit tables of one slice take 373 KB, more than the
-// 227 KB of shared memory a block may use. So the tables stay in global
-// memory, where one slice's rows are resident in the 50 MB L2 after the
-// first touches; the row gathers then hit L2 and the 24 B/packet streams
-// set the bound. At the fabric's 131,072 packets that is 3 MB, about 1 us
-// at 3.35 TB/s, so in practice the launch latency dominates.
+// What bounds it. A packet in the mask reads its selector, node, dst and
+// hash (up to 16 B), one table entry (the next-hop and departure rows, 2K
+// int32: 32 B at K = 4, one L2 sector), and every packet reads 1 B of mask
+// and writes 8 B. At full density and the fabric's 131,072 packets that
+// is ~3.2 MB of streams, ~1 us at 3.35 TB/s: bytes bound the work, and the
+// byte bound lies below the launch floor (~2.3 us for one packet, through
+// a CUDA graph). At the main path's densities (a few percent of the
+// packets need a lookup) the work is the 1.2 MB of mask and outputs, and
+// the launch floor is the bound.
 //
-// Design: one thread per packet on a 1-D grid over packets, the ragged
-// tail masked (no padding of the packet vector in device memory), no
-// shared memory, read-only loads through __ldg. The tables arrive as the
-// stacked [2, Tr, N, D, K] (injection, transit) tensors the fabric step
-// builds, with a slice tm and a per-packet (or constant) selector, so the
-// fused injection / re-lookup site is a single launch. Selector, node and
-// dst are clamped into the table, as JAX clamps a gather, so no input can
-// make the kernel read outside its tensors.
+// Why not the TPU's design. The Pallas kernel keeps one slice's [N, D, K]
+// tables whole in VMEM and gathers from there. At 108 ToRs and K = 4 the
+// injection and transit tables of one slice take 373 KB, more than the
+// 227 KB of shared memory a block may use, and staging them would cost
+// every block more bytes than its packets read. So the tables stay in
+// global memory, where a slice's rows stay resident in the 50 MB L2 after
+// the first touches, and the design cuts the dependent trips to memory:
+//
+// * Packed rows. The fabric packs the two stacks into one [2, Tr, N, D,
+//   2, K] table (core/fabric.py :: stack_tables), so an
+//   entry's next-hop and departure rows are adjacent. A packet loads both
+//   at once, with 16-byte ld.global.nc.v4 where K and the alignment allow
+//   (V = 4 int32 a load), 8-byte where they allow only that (V = 2), else
+//   scalar loads (V = 1; K in {1, 3}), all issued before any is used; the
+//   valid count and the pick then run in registers. That is one dependent
+//   trip after the streams, where a gather of the next-hop row, then of
+//   the chosen slot in a separate departure stack, took two. The wrapper
+//   picks V (kernels/time_flow_lookup.py :: vector_width); the two
+//   separate [2, Tr, N, D, K] stacks of the TPU's form take the same
+//   route with a row stride of K in place of 2K. Rows wider than kMaxK
+//   slots take the two-trip wide route.
+// * The mask first. A packet outside the optional [P] mask reads nothing
+//   beyond its mask byte and gets (-1, 0), the pair of an empty slot. The
+//   fabric passes the packets whose result it uses (injected or
+//   re-looked-up at the fused site, in transit at the hop site).
+// * The multipath hash in the kernel. Without a hash vector the kernel
+//   forms hash32(i + t * 0x9E3779B9) of the packet's index i in native
+//   uint32_t (the reference's mp_hash), which spares the host ~24 int64
+//   elementwise launches a slice. t and the table slice tm are kernel
+//   arguments.
+//
+// One thread handles one packet: four packets a thread, with 16-byte
+// loads of the int32 streams, 4 bytes of mask and 16-byte stores, lost to
+// it at every density (PERF.md section 6). The ragged tail is masked (no
+// padding in device memory); selector, node and dst are clamped into the
+// table, as JAX clamps a gather, so no input reads outside the tensors.
 
 #include <cstdint>
 
@@ -34,51 +61,159 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxK = 8;  // slots held in registers; wider rows go wide
 
-__global__ void tfl_kernel(const int32_t* __restrict__ tbl_next,
-                           const int32_t* __restrict__ tbl_dep, int32_t Tr,
-                           int32_t N, int32_t D, int32_t K, int32_t tm,
-                           const int32_t* __restrict__ sel, int32_t sel_const,
-                           const int32_t* __restrict__ node,
-                           const int32_t* __restrict__ dst,
-                           const int32_t* __restrict__ hashv,
-                           int32_t* __restrict__ out_next,
-                           int32_t* __restrict__ out_dep, int64_t P) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  const int32_t s = min(max(sel ? __ldg(sel + i) : sel_const, 0), 1);
-  const int32_t n = min(max(__ldg(node + i), 0), N - 1);
-  const int32_t d = min(max(__ldg(dst + i), 0), D - 1);
-  const int64_t row =
-      ((((static_cast<int64_t>(s) * Tr + tm) * N + n) * D) + d) * K;
-  const int32_t* rn = tbl_next + row;
-  const int32_t* rd = tbl_dep + row;
+struct Lookup {
+  const int32_t* rows_next;  // next-hop slots of entry 0
+  const int32_t* rows_dep;   // departure slots of entry 0
+  int64_t stride;            // int32 from one entry's rows to the next's
+  int32_t Tr, N, D, K, tm;
+  const int32_t* sel;        // [P] selectors, or null: sel_const for all
+  int32_t sel_const;
+  const int32_t* node;
+  const int32_t* dst;
+  const int32_t* hashv;      // [P] hash bits, or null: hash32(i + t * salt)
+  uint32_t t;
+  const uint8_t* mask;       // [P] bool, or null: every packet
+  int32_t* out_next;
+  int32_t* out_dep;
+  int64_t P;
+};
+
+__device__ __forceinline__ uint32_t hash32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// The first int32 of entry (sel, tm, node, dst)'s rows, inputs clamped.
+__device__ __forceinline__ int64_t entry(const Lookup& a, int32_t s,
+                                         int32_t n, int32_t d) {
+  s = min(max(s, 0), 1);
+  n = min(max(n, 0), a.N - 1);
+  d = min(max(d, 0), a.D - 1);
+  return (((static_cast<int64_t>(s) * a.Tr + a.tm) * a.N + n) * a.D + d) *
+         a.stride;
+}
+
+// Both rows of an entry into registers, V int32 a load, every load issued
+// before any value is used.
+template <int V>
+__device__ __forceinline__ void load_rows(const Lookup& a, int64_t e,
+                                          int32_t (&rn)[kMaxK],
+                                          int32_t (&rd)[kMaxK]) {
+#pragma unroll
+  for (int k = 0; k < kMaxK; k += V) {
+    if (k < a.K) {
+      if constexpr (V == 4) {
+        const int4 n = __ldg(reinterpret_cast<const int4*>(a.rows_next + e + k));
+        const int4 d = __ldg(reinterpret_cast<const int4*>(a.rows_dep + e + k));
+        rn[k] = n.x, rn[k + 1] = n.y, rn[k + 2] = n.z, rn[k + 3] = n.w;
+        rd[k] = d.x, rd[k + 1] = d.y, rd[k + 2] = d.z, rd[k + 3] = d.w;
+      } else if constexpr (V == 2) {
+        const int2 n = __ldg(reinterpret_cast<const int2*>(a.rows_next + e + k));
+        const int2 d = __ldg(reinterpret_cast<const int2*>(a.rows_dep + e + k));
+        rn[k] = n.x, rn[k + 1] = n.y;
+        rd[k] = d.x, rd[k + 1] = d.y;
+      } else {
+        rn[k] = __ldg(a.rows_next + e + k);
+        rd[k] = __ldg(a.rows_dep + e + k);
+      }
+    }
+  }
+}
+
+// Count the valid slots and pick one, in registers (the indices are
+// compile-time after unrolling, so the rows never leave registers).
+__device__ __forceinline__ int2 pick(const Lookup& a, const int32_t (&rn)[kMaxK],
+                                     const int32_t (&rd)[kMaxK], uint32_t h) {
   int32_t nvalid = 0;
-  for (int32_t k = 0; k < K; ++k) nvalid += __ldg(rn + k) >= 0 ? 1 : 0;
-  const uint32_t h = static_cast<uint32_t>(__ldg(hashv + i));
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) nvalid += (k < a.K && rn[k] >= 0) ? 1 : 0;
   const uint32_t slot = h % static_cast<uint32_t>(max(nvalid, 1));
-  out_next[i] = __ldg(rn + slot);
-  out_dep[i] = __ldg(rd + slot);
+  int2 r = make_int2(rn[0], rd[0]);
+#pragma unroll
+  for (int k = 1; k < kMaxK; ++k)
+    if (static_cast<uint32_t>(k) == slot) r = make_int2(rn[k], rd[k]);
+  return r;
+}
+
+// Rows wider than kMaxK: count over the next-hop row, then load the slot.
+__device__ __forceinline__ int2 pick_wide(const Lookup& a, int64_t e,
+                                          uint32_t h) {
+  int32_t nvalid = 0;
+  for (int32_t k = 0; k < a.K; ++k)
+    nvalid += __ldg(a.rows_next + e + k) >= 0 ? 1 : 0;
+  const uint32_t slot = h % static_cast<uint32_t>(max(nvalid, 1));
+  return make_int2(__ldg(a.rows_next + e + slot), __ldg(a.rows_dep + e + slot));
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) tfl_kernel(const Lookup a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.P) return;
+  int2 r = make_int2(-1, 0);  // the empty slot's pair
+  // 1. the mask first: a packet outside it reads nothing more
+  if (!a.mask || __ldg(a.mask + i)) {
+    // 2. the packet's streams
+    const int32_t s = a.sel ? __ldg(a.sel + i) : a.sel_const;
+    const int64_t e = entry(a, s, __ldg(a.node + i), __ldg(a.dst + i));
+    const uint32_t h =
+        a.hashv ? static_cast<uint32_t>(__ldg(a.hashv + i))
+                : hash32(static_cast<uint32_t>(i) + a.t * 0x9E3779B9u);
+    // 3. both rows in flight at once, then the pick in registers
+    if (a.K <= kMaxK) {
+      int32_t rn[kMaxK] = {}, rd[kMaxK] = {};
+      load_rows<V>(a, e, rn, rd);
+      r = pick(a, rn, rd, h);
+    } else {
+      r = pick_wide(a, e, h);
+    }
+  }
+  a.out_next[i] = r.x;
+  a.out_dep[i] = r.y;
+}
+
+template <int V>
+cudaError_t launch_v(const Lookup& a, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((a.P + kThreads - 1) / kThreads);
+  tfl_kernel<V><<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-extern "C" int tfl_launch(const void* tbl_next, const void* tbl_dep, int Tr,
-                          int N, int D, int K, int tm, const void* sel,
-                          int sel_const, const void* node, const void* dst,
-                          const void* hashv, void* out_next, void* out_dep,
-                          int64_t P, void* stream) {
+// vec: int32 per row load (4, 2 or 1), as vector_width chose it. Refuses
+// a vec that K, the stride or the rows' alignment does not allow.
+extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
+                          int64_t stride, int Tr, int N, int D, int K, int tm,
+                          const void* sel, int sel_const, const void* node,
+                          const void* dst, const void* hashv, unsigned t,
+                          const void* mask, void* out_next, void* out_dep,
+                          int64_t P, int vec, void* stream) {
   if (P <= 0) return 0;
-  const int64_t blocks = (P + kThreads - 1) / kThreads;
-  tfl_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tbl_next),
-      static_cast<const int32_t*>(tbl_dep), Tr, N, D, K, tm,
-      static_cast<const int32_t*>(sel), sel_const,
-      static_cast<const int32_t*>(node), static_cast<const int32_t*>(dst),
-      static_cast<const int32_t*>(hashv), static_cast<int32_t*>(out_next),
-      static_cast<int32_t*>(out_dep), P);
-  return static_cast<int>(cudaGetLastError());
+  const bool rows_ok = (vec == 1 || vec == 2 || vec == 4) && K % vec == 0 &&
+                       stride % vec == 0 && aligned(rows_next, 4 * vec) &&
+                       aligned(rows_dep, 4 * vec);
+  if (!rows_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Lookup a{static_cast<const int32_t*>(rows_next),
+                 static_cast<const int32_t*>(rows_dep),
+                 stride, Tr, N, D, K, tm,
+                 static_cast<const int32_t*>(sel), sel_const,
+                 static_cast<const int32_t*>(node),
+                 static_cast<const int32_t*>(dst),
+                 static_cast<const int32_t*>(hashv), t,
+                 static_cast<const uint8_t*>(mask),
+                 static_cast<int32_t*>(out_next),
+                 static_cast<int32_t*>(out_dep), P};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = vec == 4   ? launch_v<4>(a, s)
+                          : vec == 2 ? launch_v<2>(a, s)
+                                     : launch_v<1>(a, s);
+  return static_cast<int>(err);
 }

@@ -9,15 +9,30 @@ compilers keep them contiguous from slot 0), picks slot
 ``hash % max(nvalid, 1)`` with the hash read as an unsigned 32-bit value,
 and returns (next hop, departure offset).
 
-Unlike the TPU kernel, this one takes the stacked ``[2, Tr, N, D, K]``
-(injection, transit) tables that the fabric step builds, the slice ``tm``
-and a per-packet (or constant) table selector, so the fabric's fused
-injection / re-lookup site is one launch. Out-of-range selectors, nodes and
-destinations are clamped into the table, as JAX clamps a gather.
+Unlike the TPU kernel, this one takes both (injection, transit) tables of
+every slice, the slice ``tm`` and a per-packet (or constant) table
+selector, so the fabric's fused injection / re-lookup site is one launch.
+The tables come either as the packed ``[2, Tr, N, D, 2, K]`` table that
+``core.fabric.stack_tables`` builds, where an entry's next-hop and
+departure rows are adjacent (32 bytes at K = 4, one load), or as the two
+``[2, Tr, N, D, K]`` stacks of the TPU's form. Two inputs are optional:
+
+* ``mask``: only the packets in it are looked up; the others read nothing
+  from the table and get (-1, 0), the pair of an empty slot.
+* ``hashv`` as an int ``t`` in place of a hash vector: the per-packet
+  multipath hash of slice ``t``, ``hash32(i + t * 0x9E3779B9)`` of each
+  packet's index ``i`` (the reference's ``mp_hash``), formed in the kernel.
+
+Out-of-range selectors, nodes and destinations are clamped into the table,
+as JAX clamps a gather.
 
 :func:`time_flow_lookup` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a
 fallback). ``launches`` counts kernel launches.
+
+The 32-bit hashes run in int64 masked to 32 bits (this torch has no
+``>>``, ``%`` or ``+`` on uint32), with the multiplies split into 16-bit
+halves so no product leaves int64's range.
 """
 from __future__ import annotations
 
@@ -28,17 +43,55 @@ import torch
 from . import _build
 
 MASK32 = 0xFFFFFFFF
+SALT = 0x9E3779B9
 
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # tbl_next, tbl_dep, Tr, N, D, K, tm, sel (nullable), sel_const,
-    # node, dst, hash, out_next, out_dep, P, stream
-    "tfl_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-                    _L, _P], ctypes.c_int),
+    # rows_next, rows_dep, stride, Tr, N, D, K, tm, sel (nullable),
+    # sel_const, node, dst, hash (nullable), t, mask (nullable), out_next,
+    # out_dep, P, vec, stream
+    "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                    ctypes.c_uint, _P, _P, _P, _L, _I, _P],
+                   ctypes.c_int),
 }
 
+
+# ---------------------------------------------------------------------------
+# the multipath hash
+# ---------------------------------------------------------------------------
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32): the constant is
+    split into 16-bit halves so no product exceeds 2**48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def hash32(x):
+    """The reference's ``fabric._hash32`` on int64 tensors: the low 32 bits
+    of ``x`` in, an int64 in [0, 2**32) out."""
+    x = x & MASK32
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def as_bits(x):
+    """An int64 in [0, 2**32) as the int32 with the same 32-bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def salted_hash(base, t: int):
+    """The multipath hash of slice ``t``, ``hash32(base + t * 0x9E3779B9)``
+    in uint32 arithmetic, as int32 bits; ``base`` is an int64 tensor."""
+    return as_bits(hash32(base + ((t * SALT) & MASK32)))
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
 
 def select_slot(row_n, row_d, hashv):
     """Choose a multipath slot by hash over the valid slots of each row
@@ -51,87 +104,148 @@ def select_slot(row_n, row_d, hashv):
     return nxt, off
 
 
+def _rows(tbl_next, tbl_dep):
+    """The next-hop and departure rows of every entry, two ``[E, K]``
+    views, from the packed table or the two stacks."""
+    K = tbl_next.shape[-1]
+    if tbl_dep is None:
+        rows = tbl_next.reshape(-1, 2, K)
+        return rows[:, 0], rows[:, 1]
+    return tbl_next.reshape(-1, K), tbl_dep.reshape(-1, K)
+
+
 def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
-                           hashv):
-    """The plain PyTorch version: gather + :func:`select_slot`. Same
-    arguments as :func:`time_flow_lookup`; runs on any device."""
-    _, Tr, N, D, K = tbl_next.shape
+                           hashv, mask=None):
+    """The plain PyTorch version: gather + :func:`select_slot`, then
+    ``where(mask, lookup, (-1, 0))``. Same arguments as
+    :func:`time_flow_lookup`; runs on any device."""
+    Tr, N, D = tbl_next.shape[1:4]
+    rows_n, rows_d = _rows(tbl_next, tbl_dep)
     if isinstance(sel, torch.Tensor):
         s = sel.to(torch.int64).clamp(0, 1)
     else:
         s = min(max(int(sel), 0), 1)
     n = node.to(torch.int64).clamp(0, N - 1)
     d = dst.to(torch.int64).clamp(0, D - 1)
+    if not isinstance(hashv, torch.Tensor):
+        pid = torch.arange(node.shape[0], dtype=torch.int64,
+                           device=node.device)
+        hashv = salted_hash(pid, int(hashv))
     row = ((s * Tr + tm) * N + n) * D + d
-    return select_slot(tbl_next.reshape(-1, K)[row],
-                       tbl_dep.reshape(-1, K)[row], hashv)
+    nxt, off = select_slot(rows_n[row], rows_d[row], hashv)
+    if mask is not None:
+        nxt = torch.where(mask, nxt, -1)
+        off = torch.where(mask, off, 0)
+    return nxt, off
 
 
-def _require_cuda(tbl_next, tbl_dep, sel, node, dst, hashv):
-    tensors = [tbl_next, tbl_dep, node, dst, hashv]
-    if isinstance(sel, torch.Tensor):
-        tensors.append(sel)
-    dev = node.device
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def vector_width(K: int, stride: int, ptrs) -> int:
+    """int32 per row load in the kernel: 4 (16-byte loads) or 2 where K,
+    the row stride and every row pointer allow it, else 1. Rows wider
+    than the kernel's 8 registers take its wide route, which loads
+    scalars."""
+    if K > 8:
+        return 1
+    for v in (4, 2):
+        if K % v == 0 and stride % v == 0 and all(p % (4 * v) == 0
+                                                   for p in ptrs):
+            return v
+    return 1
+
+
+def _require_cuda(tensors):
+    dev = tensors[0].device
     for x in tensors:
         if x.device.type != "cuda" or x.device != dev:
             raise ValueError("time_flow_lookup: the kernel takes CUDA "
                              f"tensors on one device, got {x.device}")
 
 
-def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv):
-    if tbl_next.dim() != 5 or tbl_next.shape[0] != 2 \
-            or tbl_dep.shape != tbl_next.shape:
-        raise ValueError("time_flow_lookup: tables must be two equal "
-                         "[2, Tr, N, D, K] stacks, got "
-                         f"{tuple(tbl_next.shape)} / {tuple(tbl_dep.shape)}")
-    _, Tr, N, D, K = tbl_next.shape
+def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None):
+    if tbl_dep is None:
+        if tbl_next.dim() != 6 or tbl_next.shape[0] != 2 \
+                or tbl_next.shape[4] != 2:
+            raise ValueError("time_flow_lookup: a packed table must be "
+                             "[2, Tr, N, D, 2, K], got "
+                             f"{tuple(tbl_next.shape)}")
+        tables = [tbl_next]
+    else:
+        if tbl_next.dim() != 5 or tbl_next.shape[0] != 2 \
+                or tbl_dep.shape != tbl_next.shape:
+            raise ValueError("time_flow_lookup: tables must be two equal "
+                             "[2, Tr, N, D, K] stacks, got "
+                             f"{tuple(tbl_next.shape)} / "
+                             f"{tuple(tbl_dep.shape)}")
+        tables = [tbl_next, tbl_dep]
+    Tr, N, D, K = *tbl_next.shape[1:4], tbl_next.shape[-1]
     if min(Tr, N, D, K) < 1:
         raise ValueError(f"time_flow_lookup: empty tables {tuple(tbl_next.shape)}")
     if not 0 <= tm < Tr:
         raise ValueError(f"time_flow_lookup: slice {tm} outside [0, {Tr})")
     P = node.shape[0]
-    vecs = [node, dst, hashv] + ([sel] if isinstance(sel, torch.Tensor) else [])
-    for x in [tbl_next, tbl_dep] + vecs:
+    vecs = [x for x in (node, dst, sel, hashv) if isinstance(x, torch.Tensor)]
+    for x in tables + vecs:
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("time_flow_lookup: every tensor must be "
                              "contiguous int32")
+    if mask is not None:
+        if mask.dtype != torch.bool or not mask.is_contiguous():
+            raise ValueError("time_flow_lookup: the mask must be a "
+                             "contiguous bool vector")
+        vecs.append(mask)
     for x in vecs:
         if x.shape != (P,):
-            raise ValueError("time_flow_lookup: node, dst, hash and sel must "
-                             f"be [P] vectors, got {tuple(x.shape)} for P={P}")
+            raise ValueError("time_flow_lookup: node, dst, hash, sel and "
+                             "mask must be [P] vectors, got "
+                             f"{tuple(x.shape)} for P={P}")
 
 
-def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv):
+def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
+                     mask=None):
     """Per-packet time-flow table lookup.
 
-    tbl_next / tbl_dep: ``[2, Tr, N, D, K]`` int32 stacks (selector 0 is
-    the injection table, 1 the transit table; invalid slots -1 / 0);
+    tbl_next / tbl_dep: the packed ``[2, Tr, N, D, 2, K]`` int32 table and
+    ``None``, or two ``[2, Tr, N, D, K]`` int32 stacks (selector 0 is the
+    injection table, 1 the transit table; invalid slots -1 / 0);
     tm: the slice, ``0 <= tm < Tr``; sel: ``[P]`` int32 selectors or one
     int for every packet; node / dst: ``[P]`` int32; hashv: ``[P]`` int32
-    carrying the 32-bit hash pattern. Returns ``(next_hop, dep_offset)``,
-    two ``[P]`` int32 tensors.
+    carrying the 32-bit hash pattern, or an int ``t`` for the per-packet
+    multipath hash of slice ``t``; mask: ``None`` or a ``[P]`` bool, the
+    packets to look up. Returns ``(next_hop, dep_offset)``, two ``[P]``
+    int32 tensors, (-1, 0) outside the mask.
     """
     global launches
     if node.device.type == "cpu":
         return time_flow_lookup_plain(tbl_next, tbl_dep, tm, sel, node, dst,
-                                      hashv)
-    _require_cuda(tbl_next, tbl_dep, sel, node, dst, hashv)
-    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv)
-    _, Tr, N, D, K = tbl_next.shape
+                                      hashv, mask)
+    _require_cuda([x for x in (tbl_next, tbl_dep, sel, node, dst, hashv,
+                               mask) if isinstance(x, torch.Tensor)])
+    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask)
+    Tr, N, D, K = *tbl_next.shape[1:4], tbl_next.shape[-1]
     P = node.shape[0]
     out_next = torch.empty(P, dtype=torch.int32, device=node.device)
     out_dep = torch.empty(P, dtype=torch.int32, device=node.device)
     if P == 0:
         return out_next, out_dep
     lib = _build.load("time_flow_lookup", _SIGNATURES)
-    per_packet = isinstance(sel, torch.Tensor)
+    if tbl_dep is None:
+        rows_next, stride = tbl_next.data_ptr(), 2 * K
+        rows_dep = rows_next + 4 * K
+    else:
+        rows_next, rows_dep, stride = tbl_next.data_ptr(), tbl_dep.data_ptr(), K
+    ptr = lambda x: x.data_ptr() if isinstance(x, torch.Tensor) else None
     _build.launch(
         lib.tfl_launch, "time_flow_lookup",
-        tbl_next.data_ptr(), tbl_dep.data_ptr(), Tr, N, D, K, tm,
-        sel.data_ptr() if per_packet else None,
-        0 if per_packet else int(sel),
-        node.data_ptr(), dst.data_ptr(), hashv.data_ptr(),
-        out_next.data_ptr(), out_dep.data_ptr(), P,
+        rows_next, rows_dep, stride, Tr, N, D, K, tm,
+        ptr(sel), 0 if isinstance(sel, torch.Tensor) else int(sel),
+        node.data_ptr(), dst.data_ptr(), ptr(hashv),
+        0 if isinstance(hashv, torch.Tensor) else int(hashv) & MASK32,
+        ptr(mask), out_next.data_ptr(), out_dep.data_ptr(), P,
+        vector_width(K, stride, (rows_next, rows_dep)),
         torch.cuda.current_stream(node.device).cuda_stream)
     launches += 1
     return out_next, out_dep

@@ -1,6 +1,8 @@
 """The port's kernels on the CPU: the plain versions of ``time_flow_lookup``
-and ``admission_admit`` against the Pallas kernels (interpret mode) and the
-``repro.kernels.ref`` oracles, a plain-torch emulation of the CUDA
+(the TPU's form, and the packed table, the mask and the in-kernel hash of
+the port's) and ``admission_admit`` against the Pallas kernels (interpret
+mode) and the ``repro.kernels.ref`` oracles, the lookup kernel's choice of
+row loads, a plain-torch emulation of the CUDA
 admission kernel's three passes (tiles, the scan across them, the walk of
 each tile in 32-packet steps) against the plain version, and the
 32-bit hash edge cases. All integer: equal bit for bit, dtypes included.
@@ -145,6 +147,134 @@ def test_lookup_hash_is_unsigned():
     _assert_equal(qn, rn)
 
 
+def _pad_slots(a, K, fill):
+    pad = np.full(a.shape[:-1] + (K - a.shape[-1],), fill, np.int32)
+    return np.concatenate([a, pad], -1)
+
+
+@pytest.mark.parametrize("k_inj,k_tf", [(1, 1), (3, 3), (4, 4), (8, 8),
+                                        (2, 4), (3, 1)])
+def test_packed_table_round_trip(k_inj, k_tf):
+    """``stack_tables`` packs both tables into ``[2, Tr, N, D, 2, K]``:
+    unpacking gives the two stacks, K padded to the larger with (-1, 0)
+    slots; the packed table and the two stacks look up the same pairs, and
+    both equal the Pallas kernel (interpret mode) on the unpadded table of
+    each selector."""
+    rng = np.random.default_rng(10 * k_inj + k_tf)
+    Tr, n, P, tm = 3, 7, 500, 1
+    in_n, in_d = _random_tables(rng, (Tr,), n, k_inj)
+    tf_n, tf_d = _random_tables(rng, (Tr,), n, k_tf)
+    table = Q_fabric.stack_tables(*map(_t32, (in_n, in_d, tf_n, tf_d)))
+    K = max(k_inj, k_tf)
+    assert table.shape == (2, Tr, n, n, 2, K) and table.is_contiguous()
+    stk_n = np.stack([_pad_slots(in_n, K, -1), _pad_slots(tf_n, K, -1)])
+    stk_d = np.stack([_pad_slots(in_d, K, 0), _pad_slots(tf_d, K, 0)])
+    _assert_equal(table[..., 0, :], stk_n)
+    _assert_equal(table[..., 1, :], stk_d)
+    node = rng.integers(0, n, P).astype(np.int32)
+    dst = rng.integers(0, n, P).astype(np.int32)
+    sel = rng.integers(0, 2, P).astype(np.int32)
+    h = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+    args = (tm, _t32(sel), _t32(node), _t32(dst), _bits(h))
+    packed = Q_tfl.time_flow_lookup(table, None, *args)
+    stacks = Q_tfl.time_flow_lookup(_t32(stk_n), _t32(stk_d), *args)
+    refs = [R_ops.time_flow_lookup(*[jnp.asarray(x) for x in
+                                     (tn[tm], td[tm], node, dst, h)], bp=256)
+            for tn, td in ((in_n, in_d), (tf_n, tf_d))]
+    for i in (0, 1):
+        want = np.where(sel == 0, refs[0][i], refs[1][i])
+        _assert_equal(packed[i], want)
+        _assert_equal(stacks[i], want)
+
+
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+@pytest.mark.parametrize("P", [0, 1, 7, 4097])
+def test_lookup_mask(kind, P):
+    """Inside the mask the masked lookup equals the unmasked one; outside
+    it every packet gets (-1, 0), for the packed table and the two stacks,
+    with a hash vector and with the in-kernel hash."""
+    rng = np.random.default_rng(P)
+    Tr, n, k, tm = 2, 9, 4, 1
+    tn, td = _random_tables(rng, (2, Tr), n, k)
+    table = torch.stack([_t32(tn), _t32(td)], dim=4).contiguous()
+    node = _t32(rng.integers(0, n, P))
+    dst = _t32(rng.integers(0, n, P))
+    sel = _t32(rng.integers(0, 2, P))
+    mask = {"all": np.ones(P, bool), "none": np.zeros(P, bool),
+            "random": rng.random(P) < 0.5}[kind]
+    tmask = torch.tensor(mask)
+    for tables in ((table, None), (_t32(tn), _t32(td))):
+        for h in (_bits(rng.integers(0, 2 ** 32, P, dtype=np.uint64)
+                        .astype(np.uint32)), 213):
+            full = Q_tfl.time_flow_lookup(*tables, tm, sel, node, dst, h)
+            got = Q_tfl.time_flow_lookup(*tables, tm, sel, node, dst, h,
+                                         mask=tmask)
+            assert got[0].dtype == got[1].dtype == torch.int32
+            _assert_equal(got[0], np.where(mask, full[0].numpy(), -1))
+            _assert_equal(got[1], np.where(mask, full[1].numpy(), 0))
+
+
+@pytest.mark.parametrize("t", [0, 1, 107, 213, 1 << 16, 2 ** 31 - 1])
+def test_lookup_in_kernel_hash(t):
+    """``hashv=t`` hashes each packet's index salted with slice t: the
+    reference's ``_hash32(pid + t * 0x9E3779B9)``, and the lookup equals
+    the Pallas kernel (interpret mode) fed that hash."""
+    rng = np.random.default_rng(t % 1000)
+    n, k, P = 11, 4, 1000
+    tn, td = _random_tables(rng, (), n, k)
+    node = rng.integers(0, n, P).astype(np.int32)
+    dst = rng.integers(0, n, P).astype(np.int32)
+    h = np.asarray(ref_hash32(jnp.arange(P, dtype=jnp.uint32)
+                              + jnp.uint32(t) * jnp.uint32(0x9E3779B9)))
+    pid = torch.arange(P, dtype=torch.int64)
+    _assert_equal(Q_tfl.salted_hash(pid, t), h.view(np.int32))
+    pn, pd = R_ops.time_flow_lookup(*[jnp.asarray(x) for x in
+                                      (tn, td, node, dst, h)], bp=256)
+
+    def stack(a):
+        return torch.stack([_t32(a), _t32(a)])[:, None].contiguous()
+    qn, qd = Q_tfl.time_flow_lookup(stack(tn), stack(td), 0, 0, _t32(node),
+                                    _t32(dst), t)
+    _assert_equal(qn, pn)
+    _assert_equal(qd, pd)
+
+
+@pytest.mark.parametrize("K,packed,want", [
+    (1, True, 1), (2, True, 2), (3, True, 1), (4, True, 4), (6, True, 2),
+    (8, True, 4), (12, True, 1), (1, False, 1), (2, False, 2),
+    (4, False, 4), (8, False, 4)])
+def test_lookup_vector_width(K, packed, want):
+    """The kernel's row loads: 16 bytes where K, the stride and the
+    pointers allow it, 8 where only that fits, else scalars; rows wider
+    than 8 slots take the wide route's scalar loads."""
+    base = 1 << 20
+    stride = 2 * K if packed else K
+    ptrs = (base, base + 4 * K) if packed else (base, base + (1 << 16))
+    assert Q_tfl.vector_width(K, stride, ptrs) == want
+    # a row pointer that is only 4- or 8-byte aligned narrows the loads
+    assert Q_tfl.vector_width(K, stride, (base + 4, base)) == 1
+    assert Q_tfl.vector_width(K, stride, (base + 8, base)) == min(want, 2)
+
+
+def test_lookup_validates_packed_table_and_mask():
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    table, v = z(2, 3, 4, 4, 2, 2), z(5)
+    mask = torch.ones(5, dtype=torch.bool)
+    Q_tfl._check(table, None, 1, v, v, v, v, mask)
+    Q_tfl._check(table, None, 1, 1, v, v, 7, None)
+    bad = [
+        (z(2, 3, 4, 4, 3, 2), None, 1, v, v, v, v, mask),   # not 2 rows
+        (z(2, 3, 4, 4, 2), None, 1, v, v, v, v, mask),      # stack, no dep
+        (table, None, 3, v, v, v, v, mask),                 # slice >= Tr
+        (table, None, 1, v, v, v, v, mask.int()),           # mask dtype
+        (table, None, 1, v, v, v, v, mask[:4]),             # mask length
+        (table, None, 1, v, v, v, v[:4], mask),             # hash length
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            Q_tfl._check(*args)
+
+
 # ---------------------------------------------------------------------------
 # hashes
 # ---------------------------------------------------------------------------
@@ -156,10 +286,10 @@ def test_hash32_matches_reference():
                   0xFFFFFFFE, 0xFFFFFFFF], np.uint64),
         rng.integers(0, 2 ** 32, 4000, dtype=np.uint64)])
     want = np.asarray(ref_hash32(jnp.asarray(xs.astype(np.uint32))))
-    got = Q_fabric._hash32(torch.tensor(xs.astype(np.int64)))
+    got = Q_tfl.hash32(torch.tensor(xs.astype(np.int64)))
     assert got.dtype == torch.int64
     _assert_equal(got, want.astype(np.int64))
-    bits = Q_fabric._as_bits(got)
+    bits = Q_tfl.as_bits(got)
     assert bits.dtype == torch.int32
     _assert_equal(bits, want.view(np.int32))
 
@@ -173,7 +303,7 @@ def test_salted_hash_matches_reference(t):
                                                 0xFFFFFFFF]]).astype(np.int64)
     want = ref_hash32(jnp.asarray(base.astype(np.uint32))
                       + jnp.uint32(t) * jnp.uint32(0x9E3779B9))
-    got = Q_fabric._salted_hash(torch.tensor(base), t)
+    got = Q_tfl.salted_hash(torch.tensor(base), t)
     assert got.dtype == torch.int32
     _assert_equal(got, np.asarray(want).view(np.int32))
 
