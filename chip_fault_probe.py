@@ -7,9 +7,12 @@ Shows whether the checks of phase 2 (admission and the time-flow lookup
 against their plain versions, bit for bit), phase 7 (flash attention and flash-decode against
 their plain versions, per output row; the RG-LRU scan against its plain
 version, whole and per channel, and replayed from a CUDA graph), phase 12
-(the grouped matmul against its plain version, per output row) and phase
+(the grouped matmul against its plain version, per output row), phase
 15 (a 4-layer full-width Qwen3-30B-A3B through the kernels against the
-plain versions) catch a wrong kernel. For the unchanged tree and for each
+plain versions) and phase 17 (the 108-ToR main path with failure and
+control masks and telemetry: its deferred-bytes counter against the packet
+state, and its first 48 slices against the CPU's) catch a wrong kernel or
+a wrong step. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -33,7 +36,8 @@ GMM, DECODE = CSRC / "grouped_matmul.cu", CSRC / "decode_attention.cu"
 FLASH, ADM = CSRC / "flash_attention.cu", CSRC / "admission.cu"
 RG, RG_WRAPPER = CSRC / "rg_lru.cu", Path("src/repro_torch/kernels/rg_lru.py")
 TFL = CSRC / "time_flow_lookup.cu"
-PHASES = ("phase 2", "phase 7", "phase 12", "phase 15")
+FABRIC = Path("src/repro_torch/core/fabric.py")
+PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -110,6 +114,23 @@ FAULTS = {
     "lookup scalar route reads the departure row off by one for odd K": (
         TFL, "rd[k] = __ldg(a.rows_dep + e + k);",
         "rd[k] = __ldg(a.rows_dep + e + k + (a.K & 1));", ("phase 2",)),
+    # a skewed ToR's local slice with C's truncating %: a negative
+    # remainder (a clock behind) stays negative, here clamped to slice 0
+    # so that the fault reads inside the table
+    "lookup offset with C's truncating %": (
+        TFL, "tm = r < 0 ? r + a.Tr : r;", "tm = r < 0 ? 0 : r;",
+        ("phase 2", "phase 17")),
+    # the per-node offset read only where there is a selector vector: the
+    # fused site; the hop site (constant selector) reads slice tm
+    "lookup offset ignored at the hop site": (
+        TFL, "  if (a.phase_off) {", "  if (a.phase_off && a.sel) {",
+        ("phase 2", "phase 17")),
+    # the telemetry's deferred bytes leave out the packets that missed
+    # their slice
+    "telemetry drops the deferred bytes of missed packets": (
+        FABRIC, "        if has_tele:\n"
+        "            count_(s[\"_tdef\"], cl(s[\"loc\"]), size, missed)\n",
+        "", ("phase 17",)),
 }
 CHECKS = """
 import sys, torch
@@ -117,14 +138,14 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 import numpy as np
 from repro_torch.core import FabricConfig, round_robin, vlb
-from repro_torch.core.fabric import _build_caps_all, stack_tables
+from repro_torch.core.fabric import _build_caps, stack_tables
 dev = torch.device("cuda")
 phases = sys.argv[2].split(",")
 failed = []
 if "phase 2" in phases:
     sched = round_robin(cs.N_TORS, 1)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
-    caps = _build_caps_all(i32(sched.conn), FabricConfig(), cs.N_TORS)
+    caps = _build_caps(i32(sched.conn), FabricConfig(), cs.N_TORS)
     r = vlb(sched, kpaths=4)
     table = stack_tables(i32(r.inj_next), i32(r.inj_dep), i32(r.tf_next),
                          i32(r.tf_dep))
@@ -160,6 +181,12 @@ if "phase 15" in phases:
         cs.check_qwen_vs_plain(dev)
     except SystemExit:
         failed.append("phase 15")
+if "phase 17" in phases:
+    try:
+        print("phase 17", cs.check_masked_path(dev, profile=False))
+    except SystemExit as e:
+        print(f"phase 17: {e}")
+        failed.append("phase 17")
 print("FAILED:", ", ".join(failed) or "none", flush=True)
 """
 LAST_SPLIT = "one valid slot, in the last split"

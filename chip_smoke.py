@@ -16,14 +16,18 @@ Phases, each fatal on failure:
    graph whose outputs are poisoned first: the packed table with masks of
    density 0, 1%, 50% and 100% and all-false masks at odd sizes, the
    in-kernel hash at six slices, and small tables of every row-load route
-   (K of 1 to 12, the two stacks, unequal injection and transit K).
+   (K of 1 to 12, the two stacks, unequal injection and transit K); and
+   with per-node slice offsets drawn from [-2 Tr, 2 Tr] (0 and -1 among
+   them) at both lookup sites, at the main path's shape with masks of
+   100%, 10% and 1% and on small tables of every route.
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
    kernel's launch floor (the same call on one packet); split admission's
    device time by pass with the profiler. The lookup in the TPU's form
    (two stacks, a hash vector, no mask) and in the port's (the packed
-   table, the in-kernel hash, masks of density 100%, 10% and 1%), and at
-   1 and 4 packets a thread.
+   table, the in-kernel hash, masks of density 100%, 10% and 1%), and the
+   port's form with per-node slice offsets beside the same calls without
+   them, in turns.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -90,6 +94,18 @@ Phases, each fatal on failure:
    tokens whose top-8 expert set differs between the two runs.
 16. Profile one full-width, full-depth Qwen3-30B-A3B prefill and 8 decode
    steps, as phase 11 does.
+17. Run phase 4's default main path (214 slices) with the three optional
+   inputs: faults injected through ``OpenOpticsNet.inject_failure`` (a ToR
+   outage healed mid-run, a dead link, a degraded link, a stuck port) and
+   ``inject_control`` (a ToR one slice behind, one a slice ahead, one whose
+   residual skew passes the guard band, one that drifts), through
+   ``run`` (launch counters zeroed before, read after) and through
+   ``simulate(..., telemetry=TelemetryConfig())``. Hold the deferred-bytes
+   counter of every slice against the packet state after it; profile
+   slices 24-39 as phase 6 does; re-run the first 48 slices on the CPU and
+   require every ``SimResult`` field and every telemetry counter equal.
+   Print slices/s, device time and kernels launched per slice beside
+   phases 4 and 6.
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -197,10 +213,10 @@ def lookup_tables(n, k, lead=(2, 3), seed=1):
 def check_lookup(dev, table):
     """Kernel vs plain version for the lookup: the TPU's form (two stacks,
     a hash vector, no mask) over the main-path shape and the edge shapes,
-    then the packed table with masks, the in-kernel hash and every row-load
-    route (K of 1 to 12, unequal injection and transit K), each of these
-    run from a CUDA graph whose outputs are poisoned first; returns
-    (mismatches, max error)."""
+    then the packed table with masks, the in-kernel hash, per-node slice
+    offsets at both sites and every row-load route (K of 1 to 12, unequal
+    injection and transit K), each of these run from a CUDA graph whose
+    outputs are poisoned first; returns (mismatches, max error)."""
     from repro_torch.core.fabric import stack_tables
     from repro_torch.kernels import time_flow_lookup as tfl
 
@@ -222,18 +238,26 @@ def check_lookup(dev, table):
         res = [mismatch(g, w) for g, w in zip(got, want)]
         return sum(r[0] for r in res), max(r[1] for r in res)
 
-    def new_case(tbl, P, seed, density=None, t=None):
+    def new_case(tbl, P, seed, density=None, t=None, offsets=False,
+                 per_packet=True):
         """The port's form on ``tbl`` (packed, or a (next, dep) pair):
         a mask of the given density (None: no mask), the in-kernel hash of
-        slice t (None: a hash vector); the plain version gets the hash
-        vector ``salted_hash`` makes for t."""
+        slice t (None: a hash vector), per-node slice offsets drawn from
+        [-2 Tr, 2 Tr] with 0 and -1 among them (offsets), a selector per
+        packet or the hop site's constant 1 (per_packet); the plain version
+        gets the hash vector ``salted_hash`` makes for t."""
         rng = np.random.default_rng(seed)
         tn, td = (tbl, None) if isinstance(tbl, torch.Tensor) else tbl
         Tr, N, D = tn.shape[1:4]
         node, dst = t32(rng.integers(0, N, P)), t32(rng.integers(0, D, P))
-        sel = t32(rng.integers(0, 2, P))
+        sel = t32(rng.integers(0, 2, P)) if per_packet else 1
         mask = None if density is None else torch.tensor(
             rng.random(P) < density, device=dev)
+        po = None
+        if offsets:
+            po = rng.integers(-2 * Tr, 2 * Tr + 1, N)
+            po[:2] = (0, -1)
+            po = t32(po)
         tm = int(rng.integers(0, Tr))
         if t is None:
             hv = t32(rng.integers(-2 ** 31, 2 ** 31, P))
@@ -242,10 +266,10 @@ def check_lookup(dev, table):
             hv = t
             hv_plain = tfl.salted_hash(
                 torch.arange(P, dtype=torch.int64, device=dev), t)
-        got = poisoned(lambda: tfl.time_flow_lookup(tn, td, tm, sel, node,
-                                                    dst, hv, mask=mask))
+        got = poisoned(lambda: tfl.time_flow_lookup(
+            tn, td, tm, sel, node, dst, hv, mask=mask, phase_off=po))
         want = tfl.time_flow_lookup_plain(tn, td, tm, sel, node, dst,
-                                          hv_plain, mask)
+                                          hv_plain, mask, phase_off=po)
         torch.cuda.synchronize()
         res = [mismatch(g, w) for g, w in zip(got, want)]
         return sum(r[0] for r in res), max(r[1] for r in res)
@@ -284,6 +308,23 @@ def check_lookup(dev, table):
                           dict(density=0.5, t=7)))
         new_cases.append((f"small K={k} stacks", (t32(tn), t32(td)), 4097,
                           dict(density=0.5)))
+    # per-node slice offsets (a skewed ToR's local slice), at both sites:
+    # the main path's shape at its three densities, then every row-load
+    # route
+    for d in (1.0, 0.1, 0.01):
+        for site, per_packet in (("fused", True), ("hop", False)):
+            new_cases.append((f"packed P=131072 offsets, {site} site, mask "
+                              f"{d}", table, 1 << 17,
+                              dict(density=d, t=213, offsets=True,
+                                   per_packet=per_packet)))
+    for k in (1, 2, 3, 4, 6, 8, 12):
+        tn, td = lookup_tables(10, k, lead=(2, 5), seed=30 + k)
+        packed = t32(np.stack([tn, td], axis=4))
+        new_cases.append((f"small K={k} packed offsets", packed, 4097,
+                          dict(density=0.5, t=7, offsets=True)))
+        new_cases.append((f"small K={k} stacks offsets, hop site",
+                          (t32(tn), t32(td)), 4097,
+                          dict(density=0.5, offsets=True, per_packet=False)))
     for k_inj, k_tf in ((3, 1), (2, 4)):
         inj, tf = lookup_tables(10, k_inj, (3,), 20), lookup_tables(10, k_tf,
                                                                     (3,), 21)
@@ -1156,6 +1197,209 @@ def device_breakdown(fn, calls: int = 20) -> dict:
     return out
 
 
+def window_wall_ms(step, j, num_flows, prof=None) -> float:
+    """Wall ms of the fabric's slices 24-39 (16 steady-state slices, while
+    hosts still inject), after slices 0-23 set the state up."""
+    from repro_torch.core.fabric import _init_state
+    state = _init_state(j, num_flows)
+    for t in range(24):
+        step(state, t)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    for t in range(24, 40):
+        step(state, t)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if prof is not None:
+        prof.stop()
+    return wall
+
+
+def profile_window(step, j, num_flows):
+    """Slices 24-39 once without the profiler and once under it: (wall ms
+    without, wall ms profiled, the device events by time, their device ms,
+    kernels launched per slice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bare_ms = window_wall_ms(step, j, num_flows)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wall_ms = window_wall_ms(step, j, num_flows, prof)
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
+    ev.sort(key=lambda e: -self_device_ms(e))
+    tot = sum(self_device_ms(e) for e in ev)
+    kernels_per_slice = sum(e.count for e in ev if not e.key.startswith(
+        ("Memcpy", "Memset"))) / 16
+    return bare_ms, wall_ms, ev, tot, kernels_per_slice
+
+
+def main_workload():
+    """Phase 4's workload: RPC at load 0.4 over 108 ToRs, 2^17 packets."""
+    from repro_torch.core import synthesize
+    wl = synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
+                    max_packets=1 << 17, seed=0)
+    if wl.num_packets != P_MAIN:
+        raise SystemExit(f"workload has {wl.num_packets} packets, not {P_MAIN}")
+    return wl
+
+
+def faulty_net(sched):
+    """The 108-ToR net of phase 4 (default fabric, ``vlb`` with 4 paths)
+    with phase 17's faults injected through the user API: a ToR outage
+    healed at slice 120, a dead link, a degraded link and a stuck port; a
+    ToR one slice behind, one a slice ahead, one whose residual skew
+    passes the 200 ns guard band, and one that drifts."""
+    from repro_torch.core import OpenOpticsNet, vlb
+    net = OpenOpticsNet(dict(node="rack", node_num=N_TORS, uplink=1,
+                             slice_us=SLICE_US), device="cuda")
+    assert net.deploy_topo(sched)
+    net.deploy_routing(vlb(sched, kpaths=4), LOOKUP="hop", MULTIPATH="packet")
+    slice_ns = SLICE_US * 1000.0
+    net.inject_failure("tor", node=17, t_start=20, t_end=120)
+    net.inject_failure("link", node=3, dst=4)
+    net.inject_failure("degrade", node=40, dst=41, scale=0.37, t_start=10)
+    net.inject_failure("port", node=60, uplink=0, t_start=40, t_end=180)
+    net.inject_control("skew", node=7, skew_ns=-slice_ns)
+    net.inject_control("skew", node=8, skew_ns=slice_ns, t_start=30)
+    net.inject_control("skew", node=90, skew_ns=slice_ns + 700.0, t_start=5,
+                       t_end=150)
+    net.inject_control("drift", node=100, drift_ns=85.0)
+    return net
+
+
+def check_masked_path(dev, profile: bool = True) -> dict:
+    """Phase 17: the 108-ToR main path with failure masks, control masks
+    and telemetry counters, through ``OpenOpticsNet.run`` and ``simulate``
+    on the card; its deferred-bytes counter against the packet state of
+    every slice; and its first 48 slices against the CPU's plain versions,
+    every ``SimResult`` and telemetry field. Raises ``SystemExit`` on a
+    mismatch; returns the run's numbers."""
+    from repro_torch.core import (FabricConfig, FabricTables, TelemetryConfig,
+                                  compile_control, compile_masks, round_robin,
+                                  simulate)
+    from repro_torch.core.fabric import (_add_masks, _device_arrays,
+                                         _init_state, _make_step)
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    wl = main_workload()
+    net = faulty_net(sched)
+    cfg = net.fabric_cfg
+    slice_ns = SLICE_US * 1000.0
+
+    def masks(n):
+        return (compile_masks(net.failure_trace, sched, n),
+                compile_control(net.control_trace, n, N_TORS,
+                                slice_ns=slice_ns))
+    fail, ctrl = masks(SLICES)
+    if not (fail.link_cap < 1).any() or not ctrl.skew_miss.any() or \
+            not (ctrl.phase_off < 0).any() or not (ctrl.phase_off > 0).any():
+        raise SystemExit("phase 17: the masks do not hold every fault")
+    # 1. the user API, the launch counters zeroed just before and read after
+    faulty_net(sched).run(wl, 2)            # warm, on a net of its own
+    torch.cuda.synchronize()
+    tfl.launches = adm.launches = 0
+    t0 = time.perf_counter()
+    res = net.run(wl, SLICES)               # ends in a copy to the host
+    wall = time.perf_counter() - t0
+    launches = dict(tfl=tfl.launches, adm=adm.launches)
+    want = dict(tfl=SLICES * (1 + cfg.hops_per_slice),
+                adm=SLICES * cfg.hops_per_slice)
+    if launches != want:
+        raise SystemExit(f"phase 17: launches {launches} (want {want})")
+    # 2. the same run with telemetry, through simulate
+    tables = FabricTables.build(sched, net.routing)
+    fail.on_device(dev)
+    tres = simulate(tables, wl, cfg, SLICES, failures=fail, control=ctrl,
+                    telemetry=TelemetryConfig(), device="cuda")
+    tele = tres.telemetry
+    bad = sim_diff(res, dataclasses.replace(tres, telemetry=None))
+    if bad is not None:
+        raise SystemExit(f"phase 17: run and simulate differ in {bad}")
+    if not np.array_equal(tele.delivered_bytes.sum(1), res.delivered_bytes) \
+            or (tele.util_used > tele.util_cap).any() \
+            or (tele.queue_hwm < res.buf_bytes).any():
+        raise SystemExit("phase 17: telemetry counters inconsistent")
+    done = res.t_deliver >= 0
+    if done.mean() < 0.5:
+        raise SystemExit(f"phase 17: only {done.mean():.3f} delivered")
+    # 3. deferred bytes, slice by slice: with congestion detection every
+    # packet deferred in slice t (a full queue at enqueue, or a missed
+    # slice) ends it re-looking-up, on a switch, departing at t + 1
+    j = _device_arrays(tables, wl, dev)
+    _add_masks(j, fail, ctrl, SLICES)
+    step = _make_step(j, cfg, True, TelemetryConfig())
+    state = _init_state(j, wl.num_flows)
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = []
+    for t in range(SLICES):
+        rows.append(step(state, t)["tele_deferred"])
+        held = state["relook"] & (state["loc"] >= 0) & (state["dep"] == t + 1)
+        want_row = torch.zeros_like(rows[-1]).index_add_(
+            0, state["loc"].clamp(0, N_TORS - 1),
+            torch.where(held, j["size"], 0))
+        wrong += (rows[-1] != want_row).sum()
+    if int(wrong) or not np.array_equal(torch.stack(rows).cpu().numpy(),
+                                        tele.deferred_bytes):
+        raise SystemExit(f"phase 17: deferred bytes differ from the packet "
+                         f"state in {int(wrong)} (slice, switch) cells")
+    out = dict(
+        wall_s=wall, slices_per_s=SLICES / wall,
+        delivered=float(done.mean()), dropped=int(res.dropped[-1]),
+        slice_miss=int(res.slice_miss.sum()),
+        deferred_bytes=int(tele.deferred_bytes.sum()),
+        dead_link_slices=int((fail.link_cap <= 0).sum()),
+        skew_miss_cells=int(ctrl.skew_miss.sum()), launches=launches)
+    # 4. where the device time goes, slices 24-39 with all three inputs
+    if profile:
+        bare_ms, wall_ms, ev, tot, kps = profile_window(step, j, wl.num_flows)
+        out.update(device_ms_per_slice=tot / 16,
+                   kernels_per_slice=kps, wall_ms_per_slice=bare_ms / 16,
+                   profiled_wall_ms_per_slice=wall_ms / 16,
+                   idle_share=1 - tot / wall_ms)
+        for e in ev[:10]:
+            log(f"  {self_device_ms(e) / 16:8.4f} ms/slice "
+                f"{self_device_ms(e) / tot:6.1%} x{e.count // 16:<4d}/slice "
+                f"{e.key[:100]}")
+    # 5. the first 48 slices on the card and on the CPU
+    t0 = time.perf_counter()
+    f48, c48 = masks(CPU_SLICES)
+    runs = [simulate(tables, wl, cfg, CPU_SLICES, failures=f48, control=c48,
+                     telemetry=TelemetryConfig(), device=d)
+            for d in ("cuda", "cpu")]
+    bad = sim_diff(*runs)
+    if bad is not None:
+        raise SystemExit(f"phase 17: CUDA and CPU differ in {bad}")
+    out["cpu_check_s"] = time.perf_counter() - t0
+    return out
+
+
+def sim_diff(a, b):
+    """The first field in which two ``SimResult``s differ (value, shape or
+    dtype), telemetry counters included; None when they are equal."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "telemetry":
+            if (x is None) != (y is None):
+                return f.name
+            if x is None:
+                continue
+            for g in dataclasses.fields(x):
+                u, v = getattr(x, g.name), getattr(y, g.name)
+                if g.name == "lat_edges":
+                    if u != v:
+                        return "telemetry.lat_edges"
+                elif u.dtype != v.dtype or u.shape != v.shape or \
+                        not np.array_equal(u, v):
+                    return f"telemetry.{g.name}"
+        elif x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            return f.name
+    return None
+
+
 def self_device_ms(e) -> float:
     """Self device time of a profiler row in ms (the attribute was named
     ``self_cuda_time_total`` before torch 2.4)."""
@@ -1169,9 +1413,8 @@ def main() -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
     from repro_torch.core import (FabricConfig, FabricTables, OpenOpticsNet,
-                                  flow_fcts, round_robin, simulate,
-                                  synthesize, vlb)
-    from repro_torch.core.fabric import _build_caps_all, stack_tables
+                                  flow_fcts, round_robin, simulate, vlb)
+    from repro_torch.core.fabric import _build_caps, stack_tables
     from repro_torch.kernels import _build, admission as adm
     from repro_torch.kernels import time_flow_lookup as tfl
 
@@ -1200,7 +1443,7 @@ def main() -> int:
     # the TPU's form: the two [2, Tr, N, D, K] stacks
     stk_n = table[..., 0, :].contiguous()
     stk_d = table[..., 1, :].contiguous()
-    caps = _build_caps_all(i32(sched.conn), FabricConfig(), N_TORS)
+    caps = _build_caps(i32(sched.conn), FabricConfig(), N_TORS)
     log("phase 2 kernels vs plain versions")
     adm_lib = _build.load("admission", adm._SIGNATURES)
     if adm_lib.adm_smem_keys() != adm.SMEM_KEYS:
@@ -1249,15 +1492,28 @@ def main() -> int:
     masks = {d: torch.tensor(rng.random(P) < d, device=dev)
              for d in (1.0, 0.1, 0.01)}
 
-    def new_form(d, P=P):
+    # per-node slice offsets from [-2 Tr, 2 Tr], as a skewed fabric has
+    Tr = table.shape[1]
+    phase_off = t32(rng.integers(-2 * Tr, 2 * Tr + 1, N_TORS))
+
+    def new_form(d, P=P, po=None):
         return lambda: tfl.time_flow_lookup(table, None, 5, sel[:P],
                                             node[:P], dstv[:P], 213,
-                                            mask=masks[d][:P])
+                                            mask=masks[d][:P], phase_off=po)
     timings["tfl_packed_ms"] = graph_ms(lambda: tfl.time_flow_lookup(
         table, None, 5, sel, node, dstv, hv))
+    # with and without offsets in turns: without, with, with, without
     for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1")):
-        timings[f"tfl_new_{tag}_ms"] = graph_ms(new_form(d))
+        runs = [graph_ms(new_form(d, po=po))
+                for po in (None, phase_off, phase_off, None)]
+        timings[f"tfl_new_{tag}_ms"] = statistics.fmean(runs[::3])
+        timings[f"tfl_new_{tag}_off_ms"] = statistics.fmean(runs[1:3])
+        log(f"phase 3 lookup at mask {d}, without / with / with / without "
+            "offsets: "
+            + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
     timings["tfl_new_floor_ms"] = graph_ms(new_form(1.0, P=1))
+    timings["tfl_new_off_floor_ms"] = graph_ms(new_form(1.0, P=1,
+                                                        po=phase_off))
     timings["tfl_new_plain_ms"] = graph_ms(lambda: tfl.time_flow_lookup_plain(
         table, None, 5, sel, node, dstv, 213, masks[1.0]))
     timings["adm_floor_ms"] = graph_ms(lambda: adm.admission_admit(
@@ -1274,11 +1530,8 @@ def main() -> int:
             + " ".join(f"{k}={v:.2f}" for k, v in per.items()))
 
     # -- 4. main path at 108 ToRs ----------------------------------------------
-    wl = synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
-                    max_packets=1 << 17, seed=0)
+    wl = main_workload()
     P = wl.num_packets
-    if P != P_MAIN:
-        raise SystemExit(f"workload has {P} packets, not {P_MAIN}")
     log(f"phase 4 main path: {N_TORS} ToRs, T={sched.num_slices}, "
         f"{P} packets, {wl.num_flows} flows, {SLICES} slices")
 
@@ -1338,11 +1591,9 @@ def main() -> int:
         t0 = time.perf_counter()
         a = simulate(tables, wl, cfg, CPU_SLICES, device="cuda")
         b = simulate(tables, wl, cfg, CPU_SLICES, device="cpu")
-        for f in dataclasses.fields(a):
-            x, y = getattr(a, f.name), getattr(b, f.name)
-            if x.dtype != y.dtype or x.shape != y.shape or \
-                    not np.array_equal(x, y):
-                raise SystemExit(f"{name}: CUDA and CPU differ in {f.name}")
+        bad = sim_diff(a, b)
+        if bad is not None:
+            raise SystemExit(f"{name}: CUDA and CPU differ in {bad}")
         log(f"phase 5 {name}: {CPU_SLICES} slices equal on CUDA and CPU "
             f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1350,39 +1601,13 @@ def main() -> int:
     # 16 steady-state slices (24-39, while hosts still inject) of the
     # default configuration: once timed on the host clock, once under the
     # profiler for device time by kernel
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import fabric as fabric_mod
-    from repro_torch.core.fabric import _device_arrays, _init_state, _make_step
+    from repro_torch.core.fabric import _device_arrays, _make_step
     j = _device_arrays(tables, wl, dev)
     step = _make_step(j, FabricConfig(), per_packet_mp=True)
 
-    def run_window(prof=None) -> float:
-        """Wall ms of slices 24-39, after slices 0-23 set the state up."""
-        state = _init_state(j, wl.num_flows)
-        for t in range(24):
-            step(state, t)
-        torch.cuda.synchronize()
-        if prof is not None:
-            prof.start()
-        t0 = time.perf_counter()
-        for t in range(24, 40):
-            step(state, t)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        if prof is not None:
-            prof.stop()
-        return wall
-
-    bare_ms = run_window()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    wall_ms = run_window(prof)
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
-    ev.sort(key=lambda e: -self_device_ms(e))
-    tot = sum(self_device_ms(e) for e in ev)
-    kernels_per_slice = sum(e.count for e in ev if not e.key.startswith(
-        ("Memcpy", "Memset"))) / 16
+    bare_ms, wall_ms, ev, tot, kernels_per_slice = profile_window(
+        step, j, wl.num_flows)
     tfl_ev = [e for e in ev if "tfl_kernel" in e.key]
     tfl_main_us = (sum(self_device_ms(e) for e in tfl_ev) * 1e3
                    / max(sum(e.count for e in tfl_ev), 1))
@@ -1391,13 +1616,13 @@ def main() -> int:
     densities = {"fused": [], "transit": []}
     real_lookup = fabric_mod.time_flow_lookup
 
-    def recording_lookup(tn, td, tm, sel, *a, mask=None):
+    def recording_lookup(tn, td, tm, sel, *a, mask=None, **kw):
         site = "fused" if isinstance(sel, torch.Tensor) else "transit"
         densities[site].append(float(mask.float().mean()))
-        return real_lookup(tn, td, tm, sel, *a, mask=mask)
+        return real_lookup(tn, td, tm, sel, *a, mask=mask, **kw)
     fabric_mod.time_flow_lookup = recording_lookup
     try:
-        run_window()
+        window_wall_ms(step, j, wl.num_flows)
     finally:
         fabric_mod.time_flow_lookup = real_lookup
     hops = FabricConfig().hops_per_slice
@@ -1493,6 +1718,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_serve(dev, "qwen3-moe-30b-a3b", 16)
 
+    # -- 17. the main path with failures, control and telemetry ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    masked = check_masked_path(dev)
+    log(f"phase 17 masked main path (failures, control, telemetry), "
+        f"{SLICES} slices: {json.dumps(masked)}")
+    log(f"phase 17 beside the runs without masks: slices/s "
+        f"{masked['slices_per_s']:.2f} (phase 4: "
+        f"{runs['default']['slices_per_s']:.2f}); device time "
+        f"{masked['device_ms_per_slice']:.4f} ms a slice (phase 6: "
+        f"{tot / 16:.4f}); kernels launched a slice "
+        f"{masked['kernels_per_slice']:.2f} (phase 6: "
+        f"{kernels_per_slice:.2f}); 48 slices equal on CUDA and CPU, every "
+        f"field and counter")
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -1517,6 +1757,15 @@ def main() -> int:
             min(n, 2 * N_TORS * N_TORS) * 2 * K * 4
         return bound(nbytes, n * (6 + K + 13))
 
+    def offsets_bound(d):
+        # the same with per-node offsets: the [N] phase_off read once (a
+        # node still reads one slice of each table), and an add, a modulo
+        # and a select more a looked-up packet
+        n = int(d * P_MAIN)
+        nbytes = P_MAIN * (1 + 8) + n * 12 + N_TORS * 4 + \
+            min(n, 2 * N_TORS * N_TORS) * 2 * K * 4
+        return bound(nbytes, n * (6 + K + 16))
+
     kernels = [
         dict(name="time_flow_lookup", route="cuda",
              source="src/repro_torch/csrc/time_flow_lookup.cu",
@@ -1526,6 +1775,7 @@ def main() -> int:
              plain_ms=timings["tfl_plain_ms"],
              **bound(tfl_bytes, tfl_ops),
              library_ms=None, launch_floor_ms=timings["tfl_floor_ms"],
+             masked_path_launches=masked["launches"]["tfl"],
              packed_ms=timings["tfl_packed_ms"],
              new_form={tag: dict(ms=timings[f"tfl_new_{tag}_ms"],
                                  mask_density=d, **new_form_bound(d))
@@ -1533,6 +1783,12 @@ def main() -> int:
                                       (0.01, "1"))},
              new_form_floor_ms=timings["tfl_new_floor_ms"],
              new_form_plain_ms=timings["tfl_new_plain_ms"],
+             offsets={tag: dict(ms=timings[f"tfl_new_{tag}_off_ms"],
+                                ms_without=timings[f"tfl_new_{tag}_ms"],
+                                mask_density=d, **offsets_bound(d))
+                      for d, tag in ((1.0, "full"), (0.1, "10"),
+                                     (0.01, "1"))},
+             offsets_floor_ms=timings["tfl_new_off_floor_ms"],
              main_path=dict(mask_density=main_density,
                             device_us_per_call=tfl_main_us,
                             kernels_per_slice=kernels_per_slice)),
@@ -1544,6 +1800,7 @@ def main() -> int:
              plain_ms=timings["adm_plain_ms"],
              **bound(adm_bytes, adm_ops),
              library_ms=None, launch_floor_ms=timings["adm_floor_ms"],
+             masked_path_launches=masked["launches"]["adm"],
              rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
                          **bound(adm_rx_bytes, adm_ops))),
     ]

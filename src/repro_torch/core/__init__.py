@@ -2,8 +2,11 @@
 
 Control plane (host numpy, copied from the reference): topology
 (schedules), routing (time-flow table compilation), traces (synthetic
-workloads). Data plane (PyTorch on one device): fabric (calendar queues,
-congestion detection, push-back, offloading) and net (the user API).
+workloads), failures (fault traces and their masks), controlplane (clock
+skew, install delay and loss, controller stalls), guardband (the §7
+minimum-slice derivation). Data plane (PyTorch on one device): fabric
+(calendar queues, congestion detection, push-back, offloading, failure and
+control masks, telemetry counters) and net (the user API).
 """
 from .topology import (Circuit, Schedule, connect, round_robin, uniform_mesh,
                        circuits_to_conn, conn_to_circuits, deploy_topo_check)
@@ -12,8 +15,15 @@ from .routing import (CompiledRouting, direct, vlb, opera, ucmp, hoho, ecmp,
                       first_direct_offsets)
 from .fabric import (FabricConfig, FabricTables, Workload, SimResult,
                      simulate, tables_from_arrays, workload_from_arrays)
+from .telemetry import TelemetryConfig, TelemetryCounters
 from .net import OpenOpticsNet, clos_routing
+from .failures import (FailureEvent, FailureTrace, FailureMasks,
+                       compile_masks, random_trace, surviving_conn)
+from .controlplane import (ControlEvent, ControlTrace, ControlMasks,
+                           compile_control, random_control_trace,
+                           install_schedule)
 from .traces import synthesize, flow_fcts, TRACES
+from .guardband import GuardbandInputs, derive as derive_guardband
 
 __all__ = [
     "Circuit", "Schedule", "connect", "round_robin", "uniform_mesh",
@@ -23,6 +33,12 @@ __all__ = [
     "first_direct_offsets",
     "FabricConfig", "FabricTables", "Workload", "SimResult", "simulate",
     "tables_from_arrays", "workload_from_arrays",
+    "TelemetryConfig", "TelemetryCounters",
     "OpenOpticsNet", "clos_routing",
+    "FailureEvent", "FailureTrace", "FailureMasks", "compile_masks",
+    "random_trace", "surviving_conn",
+    "ControlEvent", "ControlTrace", "ControlMasks", "compile_control",
+    "random_control_trace", "install_schedule",
     "synthesize", "flow_fcts", "TRACES",
+    "GuardbandInputs", "derive_guardband",
 ]

@@ -26,9 +26,15 @@ results field for field.
   per-packet fields are replaced as in the reference.
 * The uint32 hashes run in int64 masked to 32 bits
   (:func:`repro_torch.kernels.time_flow_lookup.hash32`).
-* The reference's ``failures``, ``control`` and ``telemetry`` inputs, its
-  versioned tables, and its sharded, batched and incremental entry points
-  are not ported yet (ROADMAP Queue 1 items 4, 5 and 9).
+* The optional inputs follow the reference's presence rule: failure masks
+  (:mod:`.failures`), control-plane masks (:mod:`.controlplane`) and
+  telemetry counters (:mod:`.telemetry`) each add their branches to the
+  step only when given, so a run without them is the same program. The
+  masks go to the device once per run; a skewed ToR's lookups read its
+  local slice through the lookup kernel's per-node offset.
+* The reference's versioned tables (its reconfigure loop's installs), and
+  its sharded, batched and incremental entry points are not ported yet
+  (ROADMAP Queue 1 items 5, 6 and 9).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -42,6 +48,7 @@ import torch
 from ..kernels.admission import admission_admit
 from ..kernels.time_flow_lookup import salted_hash, time_flow_lookup
 from .routing import CompiledRouting, first_direct_offsets
+from .telemetry import TelemetryConfig, TelemetryCounters, counters_from_out
 from .topology import Schedule
 
 __all__ = ["FabricConfig", "Workload", "FabricTables", "SimResult",
@@ -155,8 +162,8 @@ def workload_from_arrays(arrays: dict) -> Workload:
 
 @dataclasses.dataclass
 class SimResult:
-    """The reference's ``SimResult`` (without telemetry): numpy arrays of
-    the same shapes and dtypes, all int32."""
+    """The reference's ``SimResult``: numpy arrays of the same shapes and
+    dtypes, all int32, and the telemetry counters when asked for."""
 
     t_deliver: np.ndarray        # [P] slice of delivery (-1 undelivered)
     loc_final: np.ndarray        # [P]
@@ -168,6 +175,9 @@ class SimResult:
     blocked_inj: np.ndarray      # [S] injections deferred by push-back
     slice_miss: np.ndarray       # [S] packets that missed their slice
     reorder_cnt: np.ndarray      # scalar: out-of-order deliveries
+    # per-ToR per-slice counter frames when simulate ran with telemetry=
+    # (None otherwise; see repro_torch.core.telemetry)
+    telemetry: TelemetryCounters | None = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -186,21 +196,42 @@ def resolve_device(device=None) -> torch.device:
 # the per-slice machinery
 # ---------------------------------------------------------------------------
 
-def _build_caps_all(conn, cfg: FabricConfig, N: int):
-    """Per-circuit capacity for every slice of the cycle ``[T, N*(N+1)]``,
-    keyed loc*(N+1)+peer; key loc*(N+1)+N is the electrical egress."""
+def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
+                node_ok=None):
+    """Per-circuit capacity ``[R, N*(N+1)]``, keyed loc*(N+1)+peer; key
+    loc*(N+1)+N is the electrical egress. Without failure masks the R rows
+    are the T slices of the cycle: a circuit admits ``slice_bytes``, an
+    egress ``elec_bytes``. With them (``link_cap`` ``[S, N, N]``,
+    ``node_ok`` ``[S, N]``) the rows are the S slices of the run, the
+    reference's per-slice ``caps_at`` for all of them at once: a circuit
+    keeps ``link_cap`` of ``slice_bytes``, the degraded product in float32
+    truncated toward zero, a healthy (>= 1) or dead (<= 0) link exact; a
+    down ToR's electrical egress gets nothing. The result takes
+    4·R·N·(N+1) bytes: with masks, about as much again as ``link_cap``."""
     T, _, U = conn.shape
-    caps = torch.zeros((T, N * (N + 1)), dtype=_I32, device=conn.device)
-    rows = torch.arange(N, dtype=torch.int64, device=conn.device)[None, :]
-    trows = torch.arange(T, dtype=torch.int64, device=conn.device)[:, None]
+    dev = conn.device
+    R = T if link_cap is None else link_cap.shape[0]
+    NKEY = N * (N + 1)
+    caps = torch.zeros((R, NKEY), dtype=_I32, device=dev)
+    rows = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    rrows = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
+    conn_r = conn[torch.arange(R, device=dev) % T]             # [R, N, U]
     flat = caps.view(-1)
     for k in range(U):
-        peer = conn[:, :, k].to(torch.int64)                   # [T, N]
+        peer = conn_r[:, :, k].to(torch.int64)                # [R, N]
         keyk = rows * (N + 1) + torch.where(peer >= 0, peer, N)
-        add = (peer >= 0).to(_I32) * cfg.slice_bytes
-        flat.index_add_(0, (trows * (N * (N + 1)) + keyk).reshape(-1),
-                        add.reshape(-1))
-    caps[:, torch.arange(N, device=conn.device) * (N + 1) + N] += cfg.elec_bytes
+        scaled = torch.full(peer.shape, cfg.slice_bytes, dtype=_I32,
+                            device=dev)
+        if link_cap is not None:
+            lck = link_cap.gather(2, peer.clamp(0, N - 1)[:, :, None])[:, :, 0]
+            scaled = torch.where(
+                lck >= 1.0, scaled,
+                torch.where(lck <= 0.0, 0, (lck * cfg.slice_bytes).to(_I32)))
+        flat.index_add_(0, (rrows * NKEY + keyk).reshape(-1),
+                        torch.where(peer >= 0, scaled, 0).reshape(-1))
+    elec = torch.arange(N, device=dev) * (N + 1) + N
+    caps[:, elec] += (cfg.elec_bytes if node_ok is None else
+                      torch.where(node_ok, cfg.elec_bytes, 0).to(_I32))
     return caps
 
 
@@ -254,11 +285,14 @@ def _init_state(j, num_flows: int):
     )
 
 
-def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
+def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
+               telemetry: TelemetryConfig | None = None):
     """Build ``step(state, t) -> stats`` over the tensors in ``j``; the
     step updates ``state`` (a dict of tensors) for slice ``t``. The
-    reference's ``_make_step`` with every optional input absent, at full
-    width."""
+    reference's single-device ``_make_step`` at full width, with its
+    failure (``j["link_cap"]``, ``j["node_ok"]``), control
+    (``j["phase_off"]``, ``j["skew_miss"]``) and telemetry branches, each
+    present only when its input is."""
     T, N, _ = j["conn"].shape
     P = j["src"].shape[0]
     dev = j["src"].device
@@ -268,7 +302,13 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
     T2 = 2 * T                       # calendar-queue ring: dep in (t, t + 2T)
     limit = min(cfg.slice_bytes, cfg.congestion_threshold)
     Tr = j["tf_next"].shape[0]
-    caps_all = _build_caps_all(j["conn"], cfg, N)          # [T, NKEY]
+    has_fail = "link_cap" in j
+    has_ctrl = "phase_off" in j
+    has_tele = telemetry is not None
+    spill = pid + N if has_tele else None   # counters' spill slots (count_)
+    # [S, NKEY] with failure masks, else [T, NKEY]
+    caps_rows = _build_caps(j["conn"], cfg, N, j.get("link_cap"),
+                            j.get("node_ok"))
 
     # packed (injection, transit) tables for the fused first-phase lookup
     table = stack_tables(j["inj_next"], j["inj_dep"], j["tf_next"],
@@ -292,6 +332,14 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
     def add_(target, idx, vals, mask):
         """``target.at[idx].add(where(mask, vals, 0))``, in place."""
         target.index_add_(0, idx, torch.where(mask, vals, 0))
+
+    def count_(counter, node, vals, mask):
+        """``counter[node] += where(mask, vals, 0)``, in place, for a
+        telemetry counter of N slots and P spill slots: a packet outside
+        ``mask`` adds its 0 to a spill slot of its own, as P-wide adds of 0
+        to a few addresses serialise on the card."""
+        counter.index_add_(0, torch.where(mask, node, spill),
+                           torch.where(mask, vals, 0))
 
     def max_at_(target2d, row, col, vals):
         """``target2d.at[row, col].max(vals)``, in place."""
@@ -325,6 +373,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         full = arrived & (off > 0) & (s["occ"][qb] > limit)
         add_(s["occ"], qb, -size, full)
         add_(s["occ"], vbucket(s["loc"], t + 1), size, full)
+        if has_tele:
+            count_(s["_tdef"], cl(s["loc"]), size, full)
         s["relook"] = s["relook"] | full
         s["dep"] = torch.where(full, t + 1, s["dep"])
         if cfg.pushback:
@@ -333,7 +383,17 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
 
     def step(s, t: int):
         h = t if per_packet_mp else flow_hash
-        caps = caps_all[t % T]
+        caps = caps_rows[t if has_fail else t % T]
+        # this slice's rows of the masks: node liveness, each ToR's whole
+        # slices of clock skew and its guard-band misses
+        no_t = j["node_ok"][t] if has_fail else None
+        po_t = j["phase_off"][t] if has_ctrl else None
+        sm_t = j["skew_miss"][t] if has_ctrl else None
+        if has_tele:
+            # per-slice counters, emitted with the stats at the end; each
+            # has P spill slots past its N counters (count_)
+            for k in ("_tin", "_tdef", "_tdrop"):
+                s[k] = torch.zeros((N + P,), dtype=_I32, device=dev)
 
         # -- 0. calendar queues activating this slice leave the occupancy map
         act = (s["loc"] >= 0) & (s["dep"] == t)
@@ -341,20 +401,28 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
 
         # -- 1+2. injection & re-lookup of deferred packets (fused lookup) --
         ready = (j["t_inject"] <= t) & (s["loc"] == NOT_INJECTED)
+        if has_fail:
+            # a down ToR's hosts cannot inject; the packets retry next slice
+            ready &= no_t[src]
         redo = s["relook"] & (s["loc"] >= 0) & (s["dep"] == t)
         # one lookup serves both phases: injection reads the inj table at
         # src, deferred packets read the transit table at loc; no other
-        # packet's result is used
+        # packet's result is used. A skewed ToR reads its local slice.
         sel = (~ready).to(_I32)
         node = torch.where(ready, src, cl(s["loc"]))
         looked_up = ready | redo
         nxt_i, off_i = time_flow_lookup(table, None, t % Tr, sel, node, dst,
-                                        h, mask=looked_up)
+                                        h, mask=looked_up, phase_off=po_t)
         off_i = _spread_offsets(off_i, looked_up, pid)
         nxt_r, off_r = nxt_i, off_i
         if cfg.flow_pausing:
-            # elephants wait for the direct circuit of their source ToR
-            fd = j["first_direct"][t % T].reshape(-1)[src * N + dst]
+            # elephants wait for the direct circuit their source ToR
+            # believes is coming (its local clock)
+            if has_ctrl:
+                tsrc = torch.remainder(t + po_t[src].to(torch.int64), T)
+                fd = j["first_direct"].reshape(-1)[(tsrc * N + src) * N + dst]
+            else:
+                fd = j["first_direct"][t % T].reshape(-1)[src * N + dst]
             use_direct = is_eleph & (fd >= 0)
             nxt_i = torch.where(use_direct, dst, nxt_i)
             off_i = torch.where(use_direct, fd, off_i)
@@ -365,6 +433,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         else:
             blocked = torch.zeros_like(ready)
         inject = ready & ~blocked
+        if has_tele:
+            count_(s["_tin"], src, size, inject)
         s["loc"] = torch.where(inject, src, s["loc"])
         s["nxt"] = torch.where(inject, nxt_i, s["nxt"])
         s["dep"] = torch.where(inject, t + off_i, s["dep"])
@@ -385,6 +455,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         backlog_min = torch.full((NKEY,), PG, dtype=_I32, device=dev)
         rx_backlog_min = torch.full((N,), PG, dtype=_I32, device=dev)
         resc_min = torch.full((NKEY,), PG, dtype=_I32, device=dev)
+        if has_tele:
+            s["_thwm"] = buf_now.clone()   # high water, maxed per hop
         for _hop in range(cfg.hops_per_slice):
             loc, nxt = s["loc"], s["nxt"]
             want = (loc >= 0) & (s["dep"] == t) & (nxt >= 0) & \
@@ -401,6 +473,19 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
                 rx_subject = (nxt >= 0) & (nxt < N) & (nxt != dst)
                 want &= ~(rx_subject & (pid >= rx_backlog_min[cl(nxt)]))
                 want &= ~(~rx_subject & (pid > backlog_min[key]))
+            # the masks' cuts come after the backlog filter: only wanted
+            # rejections mark a group's backlog, so a packet cut here never
+            # filters its healthy group-mates
+            if has_fail:
+                # the electrical fabric cannot terminate at a down ToR;
+                # dead optical circuits are already capacity-zero
+                want &= ~((nxt == N) & ~no_t[dst])
+            if has_ctrl:
+                # a ToR whose residual skew exceeds the guard band misses
+                # its optical transmit windows this slice (§7); the
+                # asynchronous electrical fabric is exempt
+                want &= ~(sm_t[cl(loc)] & (nxt < N))
+            if cfg.pushback:
                 # FIFO admission against the receiver's remaining buffer
                 need_buf = want & (nxt < N) & (nxt != dst)
                 room = (cfg.switch_buffer - buf_now).clamp(min=0).to(_I32)
@@ -443,7 +528,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
             in_transit = moved & ~at_dst
             node_t = cl(s["loc"])
             nxt_t, off_t = time_flow_lookup(table, None, t % Tr, 1, node_t,
-                                            dst, h, mask=in_transit)
+                                            dst, h, mask=in_transit,
+                                            phase_off=po_t)
             off_t = _spread_offsets(off_t, in_transit, pid)
             s["nxt"] = torch.where(in_transit, nxt_t, s["nxt"])
             s["dep"] = torch.where(in_transit, t + off_t, s["dep"])
@@ -454,6 +540,9 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
             if cfg.pushback:
                 max_at_(s["block_until"], torch.where(overflow, dst, 0),
                         s["dep"] % T, overflow.to(_I32) * (t + T))
+            if has_tele:
+                torch.maximum(s["_thwm"], buf_now, out=s["_thwm"])
+                count_(s["_tdrop"], node_t, size, overflow)
             s["loc"] = torch.where(overflow, DROPPED, s["loc"])
             arrived = in_transit & ~overflow
             add_(s["occ"], vbucket(s["loc"], t + off_t), size,
@@ -467,6 +556,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
         if cfg.cc_detect:
             s["relook"] = s["relook"] | missed
         add_(s["occ"], cl(s["loc"]) * T2 + bump % T2, size, missed)
+        if has_tele:
+            count_(s["_tdef"], cl(s["loc"]), size, missed)
         s["dep"] = torch.where(missed, bump, s["dep"])
         if cfg.pushback:
             max_at_(s["block_until"], dst, torch.full_like(dst, t % T),
@@ -478,27 +569,80 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool):
             off_sw = s["occ"].view(N, T2).sum(1).to(_I32) - on_sw
         else:
             off_sw = torch.zeros_like(on_sw)
-        return dict(
+        stats = dict(
             delivered_bytes=torch.where(s["t_del"] == t, size, 0).sum().to(_I32),
             dropped=(s["loc"] == DROPPED).sum().to(_I32),
             buf_bytes=on_sw, offl_bytes=off_sw,
             blocked_inj=n_blocked, slice_miss=miss_cnt,
         )
+        if has_tele:
+            # circuit utilization: optical bytes moved vs granted per
+            # source switch (the electrical column N left out); delivered
+            # rows and the latency histogram come from the final state
+            # (_tele_delivery_rows)
+            stats.update(
+                tele_injected=s["_tin"][:N], tele_deferred=s["_tdef"][:N],
+                tele_dropped=s["_tdrop"][:N],
+                tele_qhwm=torch.maximum(s["_thwm"], on_sw),
+                tele_util_used=used.view(N, N + 1)[:, :N].sum(1).to(_I32),
+                tele_util_cap=caps.view(N, N + 1)[:, :N].sum(1).to(_I32))
+        return stats
 
     return step
 
 
 _STAT_SHAPES = dict(delivered_bytes=(), dropped=(), buf_bytes=None,
                     offl_bytes=None, blocked_inj=(), slice_miss=())
+# the per-slice telemetry rows the step emits ([N] each)
+_TELE_STEP_KEYS = ("tele_injected", "tele_deferred", "tele_dropped",
+                   "tele_qhwm", "tele_util_used", "tele_util_cap")
 
 
-def _sim_out(final, ys: list, N: int) -> dict:
+def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
+                        num_slices: int):
+    """Per-slice delivered rows ``[S, N]`` and latency histogram ``[S, B]``
+    from the final packet state (the reference's ``_tele_delivery_rows``):
+    ``t_del`` is written once, so one scatter over the packets equals
+    accumulating ``t_del == t`` rows slice by slice. A delivery outside
+    the run (an electrical one landing after the last slice) scatters
+    nothing."""
+    N = j["conn"].shape[1]
+    dev = final["t_del"].device
+    rows = torch.zeros((num_slices, N), dtype=_I32, device=dev)
+    hist = torch.zeros((num_slices, telemetry.num_buckets), dtype=_I32,
+                       device=dev)
+    if num_slices == 0:
+        return rows, hist
+    t_del = final["t_del"]
+    ok = (t_del >= 0) & (t_del < num_slices)
+    relc = t_del.clamp(0, num_slices - 1).to(torch.int64)
+    dst = j["dst"].clamp(0, N - 1).to(torch.int64)
+    rows.view(-1).index_add_(0, relc * N + dst, torch.where(ok, j["size"], 0))
+    # bucket i counts latencies in (edges[i-1], edges[i]]; the last is
+    # overflow
+    edges = torch.tensor(telemetry.lat_edges, dtype=_I32, device=dev)
+    lat = (t_del - j["t_inject"]).clamp(min=0)
+    bucket = torch.searchsorted(edges, lat, right=False)
+    hist.view(-1).index_add_(0, relc * telemetry.num_buckets + bucket,
+                             ok.to(_I32))
+    return rows, hist
+
+
+def _sim_out(final, ys: list, j, telemetry: TelemetryConfig | None,
+             num_slices: int) -> dict:
     """The result dict from the final state and the per-slice stats,
-    stacked on the device and copied to the host once per field."""
+    stacked on the device and copied to the host once per field; with
+    telemetry the ``tele_*`` rows too."""
+    N = j["conn"].shape[1]
     out = dict(t_deliver=final["t_del"], loc_final=final["loc"],
                nhops=final["nhops"], reorder_cnt=final["reorder"])
     dev = final["loc"].device
-    for k, shape in _STAT_SHAPES.items():
+    shapes = dict(_STAT_SHAPES)
+    if telemetry is not None:
+        shapes.update(dict.fromkeys(_TELE_STEP_KEYS))
+        out["tele_delivered"], out["tele_lat_hist"] = _tele_delivery_rows(
+            final, j, telemetry, num_slices)
+    for k, shape in shapes.items():
         if ys:
             out[k] = torch.stack([y[k] for y in ys])
         else:
@@ -521,6 +665,25 @@ def _device_arrays(tables: FabricTables, wl: Workload, dev) -> dict:
     )
 
 
+def _add_masks(j, failures, control, num_slices: int) -> None:
+    """Check that the masks cover the run and add them to ``j`` as tensors
+    on its device, once per run (``None`` adds nothing)."""
+    N = j["conn"].shape[1]
+    dev = j["conn"].device
+    if failures is not None:
+        failures.validate(num_slices, N)
+        j["link_cap"] = torch.as_tensor(failures.link_cap,
+                                        dtype=torch.float32, device=dev)
+        j["node_ok"] = torch.as_tensor(failures.node_ok, dtype=torch.bool,
+                                       device=dev)
+    if control is not None:
+        control.validate(num_slices, N)
+        j["phase_off"] = torch.as_tensor(control.phase_off, dtype=_I32,
+                                         device=dev).contiguous()
+        j["skew_miss"] = torch.as_tensor(control.skew_miss,
+                                         dtype=torch.bool, device=dev)
+
+
 def simulate(tables: FabricTables, wl: Workload, cfg: FabricConfig,
              num_slices: int, failures=None, control=None, telemetry=None,
              device=None) -> SimResult:
@@ -532,21 +695,36 @@ def simulate(tables: FabricTables, wl: Workload, cfg: FabricConfig,
         wl: the packet workload (host numpy; see :class:`Workload`).
         cfg: static fabric parameters.
         num_slices: slices to run (the schedule cycle wraps as needed).
-        failures, control, telemetry: not ported yet; anything but
-            ``None`` raises ``NotImplementedError``.
+        failures: optional :class:`repro_torch.core.failures.FailureMasks`
+            covering the run (``[num_slices, N, N]`` link capacities,
+            ``[num_slices, N]`` ToR liveness; numpy or torch). Dead and
+            degraded circuits admit less (nothing, when dead), so their
+            packets miss the slice and re-enqueue through the §5.2
+            machinery; a down ToR neither injects nor terminates
+            electrical transfers.
+        control: optional :class:`repro_torch.core.controlplane.ControlMasks`
+            covering the run. A ToR skewed by whole slices (``phase_off``)
+            reads its time-flow tables at its *local* slice; a ToR whose
+            residual offset exceeds the guard band (``skew_miss``) misses
+            its optical transmit windows that slice (the electrical
+            fabric is exempt).
+        telemetry: optional :class:`repro_torch.core.telemetry
+            .TelemetryConfig`: per-ToR per-slice counters come back as
+            ``SimResult.telemetry``; every other field is unchanged.
         device: where to run: CUDA by default, through the hand-written
             kernels; ``"cpu"`` runs their plain versions.
 
+    Mask shapes that do not cover the run raise ``ValueError``. Each
+    optional input that is ``None`` leaves its branches out of the step.
     Returns a :class:`SimResult` of host numpy arrays.
     """
-    if failures is not None or control is not None or telemetry is not None:
-        raise NotImplementedError(
-            "failure masks, control masks and telemetry are not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 4)")
     dev = resolve_device(device)
     j = _device_arrays(tables, wl, dev)
+    _add_masks(j, failures, control, num_slices)
     num_flows = int(max(wl.flow.max() + 1, 1)) if wl.num_packets else 1
-    step = _make_step(j, cfg, tables.multipath == "packet")
+    step = _make_step(j, cfg, tables.multipath == "packet", telemetry)
     state = _init_state(j, num_flows)
     ys = [step(state, t) for t in range(num_slices)]
-    return SimResult(**_sim_out(state, ys, tables.conn.shape[1]))
+    out = _sim_out(state, ys, j, telemetry, num_slices)
+    tele = counters_from_out(out, telemetry)
+    return SimResult(**out, telemetry=tele)

@@ -11,9 +11,11 @@ Typical user program (paper Fig. 5)::
     net.deploy_routing(vlb(sched))              # paths -> time-flow tables
     res = net.run(workload, num_slices=1000)    # on the GPU
 
-The net runs on CUDA unless built with ``device="cpu"``. The reference's
-failure, control-plane, telemetry and clocked-service APIs are not ported
-yet (ROADMAP Queue 1 items 4 and 5).
+The net runs on CUDA unless built with ``device="cpu"``. Faults injected
+with :meth:`OpenOpticsNet.inject_failure` / :meth:`~OpenOpticsNet.inject_control`
+apply to the :meth:`~OpenOpticsNet.run` windows they touch. The reference's
+clocked-service API (``ingest``, ``advance``, ``snapshot``), the one reader
+of the net's telemetry config, is not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ import dataclasses
 import numpy as np
 
 from . import routing as routing_mod
+from .controlplane import ControlTrace, compile_control
 from .fabric import (FabricConfig, FabricTables, SimResult, Workload,
                      resolve_device, simulate)
+from .failures import FailureTrace, compile_masks
 from .routing import CompiledRouting
+from .telemetry import TelemetryConfig
 from .topology import Schedule, deploy_topo_check
 
 __all__ = ["OpenOpticsNet", "clos_routing"]
@@ -45,10 +50,6 @@ class OpenOpticsNet:
     versions of the kernels)."""
 
     def __init__(self, config: dict, device=None):
-        if config.get("telemetry") is not None:
-            raise NotImplementedError(
-                "telemetry is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 item 4)")
         self.device = resolve_device(device)
         self.config = dict(config)
         self.n_nodes = int(config["node_num"])
@@ -61,6 +62,14 @@ class OpenOpticsNet:
         self._last_result: SimResult | None = None
         self._last_workload: Workload | None = None
         self._clock = 0  # slices elapsed across run() windows
+        self.failure_trace = FailureTrace()
+        self.control_trace = ControlTrace()
+        tele = config.get("telemetry", None)
+        if isinstance(tele, dict):
+            tele = TelemetryConfig(**tele)
+        # stored for the clocked service (not ported yet); run() does not
+        # count, as in the reference
+        self.telemetry: TelemetryConfig | None = tele
 
     # -- Topology APIs ------------------------------------------------------
     def deploy_topo(self, sched: Schedule) -> bool:
@@ -89,6 +98,79 @@ class OpenOpticsNet:
             raise RuntimeError("deploy_routing first")
         return routing_mod.add_entry(self.routing, node, dst, egress, arr_ts, dep_ts)
 
+    # -- Failure APIs (repro_torch.core.failures) ----------------------------
+    def inject_failure(self, kind: str, *, node: int = -1, dst: int = -1,
+                       uplink: int = 0, t_start: int | None = None,
+                       t_end: int | None = None, scale: float = 0.5) -> bool:
+        """Inject a fault into the fabric (Table-1 API style). ``kind`` is
+        one of ``"link"`` (circuit ``node -> dst`` dark), ``"port"``
+        (``node``'s OCS ``uplink`` stuck), ``"tor"`` (``node`` down), or
+        ``"degrade"`` (circuit ``node -> dst`` keeps a ``scale`` capacity
+        fraction). ``t_start`` defaults to the net's current clock and
+        ``t_end`` to open-ended (until :meth:`heal`). Subsequent
+        :meth:`run` windows simulate under the accumulated fault trace.
+        """
+        from .failures import OPEN_END
+        t0 = self._clock if t_start is None else t_start
+        t1 = OPEN_END if t_end is None else t_end
+        if kind == "link":
+            self.failure_trace.link_flap(node, dst, t0, t1)
+        elif kind == "port":
+            self.failure_trace.stuck_port(node, uplink, t0, t1)
+        elif kind == "tor":
+            self.failure_trace.tor_outage(node, t0, t1)
+        elif kind == "degrade":
+            self.failure_trace.degrade(node, dst, scale, t0, t1)
+        else:
+            raise ValueError(f"unknown failure kind {kind!r}")
+        return True
+
+    def heal(self, t: int | None = None) -> bool:
+        """End every active fault at slice ``t`` (default: the net's
+        current clock) and drop faults scheduled to start later."""
+        self.failure_trace.heal_all(self._clock if t is None else t)
+        return True
+
+    # -- Control-plane fault APIs (repro_torch.core.controlplane) ------------
+    def inject_control(self, kind: str, *, node: int = -1,
+                       skew_ns: float = 0.0, drift_ns: float = 0.0,
+                       delay: int = 0, loss: float = 0.0,
+                       t_start: int | None = None,
+                       t_end: int | None = None) -> bool:
+        """Inject a control-plane fault (Table-1 API style). ``kind`` is
+        one of ``"skew"`` (ToR ``node``'s clock runs ``skew_ns`` off
+        fabric time), ``"drift"`` (``drift_ns`` more per slice),
+        ``"install_delay"`` / ``"install_loss"`` (table-install messages
+        to ``node``, or every ToR when -1, are delayed/lost), or
+        ``"stall"`` (the controller stalls). ``t_start`` defaults to the
+        net's current clock, ``t_end`` to open-ended (until
+        :meth:`heal_control`). Subsequent :meth:`run` windows simulate
+        under the accumulated trace.
+        """
+        from .controlplane import OPEN_END
+        t0 = self._clock if t_start is None else t_start
+        t1 = OPEN_END if t_end is None else t_end
+        if kind == "skew":
+            self.control_trace.skew(node, skew_ns, t0, t1)
+        elif kind == "drift":
+            self.control_trace.drift(node, drift_ns, t0, t1)
+        elif kind == "install_delay":
+            self.control_trace.install_delay(delay, t0, t1, node=node)
+        elif kind == "install_loss":
+            self.control_trace.install_loss(loss, t0, t1, node=node)
+        elif kind == "stall":
+            self.control_trace.stall(t0, t1)
+        else:
+            raise ValueError(f"unknown control fault kind {kind!r}")
+        return True
+
+    def heal_control(self, t: int | None = None) -> bool:
+        """End every active control-plane fault at slice ``t`` (default:
+        the net's current clock; the control-plane mirror of
+        :meth:`heal`)."""
+        self.control_trace.heal_all(self._clock if t is None else t)
+        return True
+
     # -- Monitoring APIs ------------------------------------------------------
     def collect(self, interval: str | None = None) -> np.ndarray:
         """Global traffic matrix observed in the last run window (bytes)."""
@@ -112,8 +194,20 @@ class OpenOpticsNet:
         if self.schedule is None or self.routing is None:
             raise RuntimeError("deploy_topo and deploy_routing first")
         tables = FabricTables.build(self.schedule, self.routing)
+        masks = ctrl = None
+        # only windows a fault can touch pay the mask branches; their masks
+        # are compiled at the net's clock
+        if self.failure_trace.active_in(self._clock,
+                                        self._clock + num_slices):
+            masks = compile_masks(self.failure_trace, self.schedule,
+                                  num_slices, t0=self._clock)
+        if self.control_trace.active_in(self._clock,
+                                        self._clock + num_slices):
+            ctrl = compile_control(
+                self.control_trace, num_slices, self.n_nodes,
+                slice_ns=self.slice_us * 1000.0, t0=self._clock)
         res = simulate(tables, wl, self.fabric_cfg, num_slices,
-                       device=self.device)
+                       failures=masks, control=ctrl, device=self.device)
         self._last_result = res
         self._last_workload = wl
         tm = np.zeros((self.n_nodes, self.n_nodes), dtype=np.float64)

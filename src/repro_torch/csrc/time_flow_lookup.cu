@@ -8,7 +8,8 @@
 // time_flow_lookup_plain in src/repro_torch/kernels/time_flow_lookup.py.
 //
 // What bounds it. A packet in the mask reads its selector, node, dst and
-// hash (up to 16 B), one table entry (the next-hop and departure rows, 2K
+// hash (up to 16 B), its node's slice offset where there are offsets
+// (4 B), one table entry (the next-hop and departure rows, 2K
 // int32: 32 B at K = 4, one L2 sector), and every packet reads 1 B of mask
 // and writes 8 B. At full density and the fabric's 131,072 packets that
 // is ~3.2 MB of streams, ~1 us at 3.35 TB/s: bytes bound the work, and the
@@ -47,6 +48,13 @@
 //   uint32_t (the reference's mp_hash), which spares the host ~24 int64
 //   elementwise launches a slice. t and the table slice tm are kernel
 //   arguments.
+// * A ToR's local slice. With the optional [N] phase_off (control-plane
+//   clock skew, in whole slices), a packet at node n reads slice
+//   (tm + phase_off[n]) mod Tr: one more 4-byte load, after the node's
+//   (the [N] vector stays in L1 and L2). The offset is negative for a ToR whose clock runs
+//   behind, so the modulo is a floor modulo (JAX's %), not C's truncating
+//   one; the hash keeps the global slice t as its salt, as the
+//   reference's does.
 //
 // One thread handles one packet: four packets a thread, with 16-byte
 // loads of the int32 streams, 4 bytes of mask and 16-byte stores, lost to
@@ -68,6 +76,7 @@ struct Lookup {
   const int32_t* rows_dep;   // departure slots of entry 0
   int64_t stride;            // int32 from one entry's rows to the next's
   int32_t Tr, N, D, K, tm;
+  const int32_t* phase_off;  // [N] slice offset of each node, or null
   const int32_t* sel;        // [P] selectors, or null: sel_const for all
   int32_t sel_const;
   const int32_t* node;
@@ -86,13 +95,19 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// The first int32 of entry (sel, tm, node, dst)'s rows, inputs clamped.
+// The first int32 of entry (sel, slice, node, dst)'s rows, inputs clamped;
+// the slice is tm, or node n's local slice (tm + phase_off[n]) mod Tr.
 __device__ __forceinline__ int64_t entry(const Lookup& a, int32_t s,
                                          int32_t n, int32_t d) {
   s = min(max(s, 0), 1);
   n = min(max(n, 0), a.N - 1);
   d = min(max(d, 0), a.D - 1);
-  return (((static_cast<int64_t>(s) * a.Tr + a.tm) * a.N + n) * a.D + d) *
+  int64_t tm = a.tm;
+  if (a.phase_off) {
+    const int64_t r = (tm + __ldg(a.phase_off + n)) % a.Tr;  // in (-Tr, Tr)
+    tm = r < 0 ? r + a.Tr : r;                               // floor modulo
+  }
+  return (((static_cast<int64_t>(s) * a.Tr + tm) * a.N + n) * a.D + d) *
          a.stride;
 }
 
@@ -192,7 +207,7 @@ bool aligned(const void* p, int bytes) {
 // a vec that K, the stride or the rows' alignment does not allow.
 extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
                           int64_t stride, int Tr, int N, int D, int K, int tm,
-                          const void* sel, int sel_const, const void* node,
+                          const void* phase_off, const void* sel, int sel_const, const void* node,
                           const void* dst, const void* hashv, unsigned t,
                           const void* mask, void* out_next, void* out_dep,
                           int64_t P, int vec, void* stream) {
@@ -204,6 +219,7 @@ extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
   const Lookup a{static_cast<const int32_t*>(rows_next),
                  static_cast<const int32_t*>(rows_dep),
                  stride, Tr, N, D, K, tm,
+                 static_cast<const int32_t*>(phase_off),
                  static_cast<const int32_t*>(sel), sel_const,
                  static_cast<const int32_t*>(node),
                  static_cast<const int32_t*>(dst),

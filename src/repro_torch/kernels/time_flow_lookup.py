@@ -15,13 +15,19 @@ selector, so the fabric's fused injection / re-lookup site is one launch.
 The tables come either as the packed ``[2, Tr, N, D, 2, K]`` table that
 ``core.fabric.stack_tables`` builds, where an entry's next-hop and
 departure rows are adjacent (32 bytes at K = 4, one load), or as the two
-``[2, Tr, N, D, K]`` stacks of the TPU's form. Two inputs are optional:
+``[2, Tr, N, D, K]`` stacks of the TPU's form. Three inputs are optional:
 
 * ``mask``: only the packets in it are looked up; the others read nothing
   from the table and get (-1, 0), the pair of an empty slot.
 * ``hashv`` as an int ``t`` in place of a hash vector: the per-packet
   multipath hash of slice ``t``, ``hash32(i + t * 0x9E3779B9)`` of each
   packet's index ``i`` (the reference's ``mp_hash``), formed in the kernel.
+* ``phase_off``: an ``[N]`` int32 slice offset per node (control-plane
+  clock skew, ``ControlMasks.phase_off`` of the slice simulated). A packet
+  at node ``n`` then reads slice ``(tm + phase_off[n]) mod Tr``, a floor
+  modulo (negative offsets are a clock behind), where ``n`` is its node
+  clamped into the table: the reference's ``tl = t + po_t[node]``. The
+  hash keeps ``t``.
 
 Out-of-range selectors, nodes and destinations are clamped into the table,
 as JAX clamps a gather.
@@ -49,10 +55,10 @@ launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # rows_next, rows_dep, stride, Tr, N, D, K, tm, sel (nullable),
-    # sel_const, node, dst, hash (nullable), t, mask (nullable), out_next,
-    # out_dep, P, vec, stream
-    "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+    # rows_next, rows_dep, stride, Tr, N, D, K, tm, phase_off (nullable),
+    # sel (nullable), sel_const, node, dst, hash (nullable), t, mask
+    # (nullable), out_next, out_dep, P, vec, stream
+    "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                     ctypes.c_uint, _P, _P, _P, _L, _I, _P],
                    ctypes.c_int),
 }
@@ -115,7 +121,7 @@ def _rows(tbl_next, tbl_dep):
 
 
 def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
-                           hashv, mask=None):
+                           hashv, mask=None, phase_off=None):
     """The plain PyTorch version: gather + :func:`select_slot`, then
     ``where(mask, lookup, (-1, 0))``. Same arguments as
     :func:`time_flow_lookup`; runs on any device."""
@@ -131,6 +137,9 @@ def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
         pid = torch.arange(node.shape[0], dtype=torch.int64,
                            device=node.device)
         hashv = salted_hash(pid, int(hashv))
+    if phase_off is not None:
+        # the node's local slice; torch.remainder is a floor modulo
+        tm = torch.remainder(tm + phase_off.to(torch.int64)[n], Tr)
     row = ((s * Tr + tm) * N + n) * D + d
     nxt, off = select_slot(rows_n[row], rows_d[row], hashv)
     if mask is not None:
@@ -165,7 +174,8 @@ def _require_cuda(tensors):
                              f"tensors on one device, got {x.device}")
 
 
-def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None):
+def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
+           phase_off=None):
     if tbl_dep is None:
         if tbl_next.dim() != 6 or tbl_next.shape[0] != 2 \
                 or tbl_next.shape[4] != 2:
@@ -202,10 +212,16 @@ def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None):
             raise ValueError("time_flow_lookup: node, dst, hash, sel and "
                              "mask must be [P] vectors, got "
                              f"{tuple(x.shape)} for P={P}")
+    if phase_off is not None and (
+            phase_off.dtype != torch.int32 or not phase_off.is_contiguous()
+            or phase_off.shape != (N,)):
+        raise ValueError("time_flow_lookup: phase_off must be a contiguous "
+                         f"int32 [N] vector for N={N}, got "
+                         f"{phase_off.dtype} {tuple(phase_off.shape)}")
 
 
 def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
-                     mask=None):
+                     mask=None, phase_off=None):
     """Per-packet time-flow table lookup.
 
     tbl_next / tbl_dep: the packed ``[2, Tr, N, D, 2, K]`` int32 table and
@@ -215,16 +231,19 @@ def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
     int for every packet; node / dst: ``[P]`` int32; hashv: ``[P]`` int32
     carrying the 32-bit hash pattern, or an int ``t`` for the per-packet
     multipath hash of slice ``t``; mask: ``None`` or a ``[P]`` bool, the
-    packets to look up. Returns ``(next_hop, dep_offset)``, two ``[P]``
-    int32 tensors, (-1, 0) outside the mask.
+    packets to look up; phase_off: ``None`` or an ``[N]`` int32 slice
+    offset per node, so that a packet at node ``n`` reads slice
+    ``(tm + phase_off[n]) mod Tr``. Returns ``(next_hop, dep_offset)``,
+    two ``[P]`` int32 tensors, (-1, 0) outside the mask.
     """
     global launches
     if node.device.type == "cpu":
         return time_flow_lookup_plain(tbl_next, tbl_dep, tm, sel, node, dst,
-                                      hashv, mask)
+                                      hashv, mask, phase_off)
     _require_cuda([x for x in (tbl_next, tbl_dep, sel, node, dst, hashv,
-                               mask) if isinstance(x, torch.Tensor)])
-    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask)
+                               mask, phase_off)
+                   if isinstance(x, torch.Tensor)])
+    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask, phase_off)
     Tr, N, D, K = *tbl_next.shape[1:4], tbl_next.shape[-1]
     P = node.shape[0]
     out_next = torch.empty(P, dtype=torch.int32, device=node.device)
@@ -240,7 +259,7 @@ def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
     ptr = lambda x: x.data_ptr() if isinstance(x, torch.Tensor) else None
     _build.launch(
         lib.tfl_launch, "time_flow_lookup",
-        rows_next, rows_dep, stride, Tr, N, D, K, tm,
+        rows_next, rows_dep, stride, Tr, N, D, K, tm, ptr(phase_off),
         ptr(sel), 0 if isinstance(sel, torch.Tensor) else int(sel),
         node.data_ptr(), dst.data_ptr(), ptr(hashv),
         0 if isinstance(hashv, torch.Tensor) else int(hashv) & MASK32,

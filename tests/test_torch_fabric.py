@@ -7,6 +7,7 @@ also held against the seed data plane ``tests/fabric_ref.py::simulate_ref``.
 The electrical Clos, per-flow multipath, all 8 schemes and the
 ``OpenOpticsNet`` API are in ``test_torch_fabric_mechanisms.py``.
 """
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -72,7 +73,7 @@ def test_simulate_deterministic_and_port_tables():
     a = Q.simulate(qt, qw, cfg, SLICES, device="cpu")
     b = Q.simulate(own, qw, cfg, SLICES, device="cpu")
     for f in a.__dataclass_fields__:
-        assert (getattr(a, f) == getattr(b, f)).all(), f
+        assert np.all(getattr(a, f) == getattr(b, f)), f
 
 
 def test_simulate_zero_slices_and_shapes():

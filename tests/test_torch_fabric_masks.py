@@ -34,8 +34,8 @@ CONFIGS = [
 def _noisy_lookup(real, gen):
     """``real`` with every packet outside the mask given a random next hop
     in [-1, N]."""
-    def lookup(*args, mask=None):
-        nxt, off = real(*args, mask=mask)
+    def lookup(*args, mask=None, **kw):
+        nxt, off = real(*args, mask=mask, **kw)
         assert mask is not None, "every lookup of the step passes a mask"
         noise = torch.randint(-1, N + 1, nxt.shape, generator=gen,
                               dtype=torch.int32)

@@ -100,14 +100,40 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     assert res.t_deliver.dtype == np.int32
 
 
-def test_unported_inputs_raise():
+def test_misshaped_masks_raise():
+    """Failure and control masks that do not cover the run (slices or
+    ToRs) raise ``ValueError`` before the run starts, as in the
+    reference."""
     tables, wl = _small_run_inputs()
-    for kw in (dict(failures=object()), dict(control=object()),
-               dict(telemetry=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Q.simulate(tables, wl, Q.FabricConfig(), 2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Q.OpenOpticsNet(dict(node_num=4, telemetry={}), device="cpu")
+    N = tables.conn.shape[1]
+    cfg = Q.FabricConfig(slice_bytes=4_000)
+    bad_failures = [Q.FailureMasks.healthy(3, N), Q.FailureMasks.healthy(4, N + 1),
+                    Q.FailureMasks(np.ones((4, N, N), np.float32),
+                                   np.ones((4, N - 1), bool))]
+    for m in bad_failures:
+        with pytest.raises(ValueError, match="do not cover"):
+            Q.simulate(tables, wl, cfg, 4, failures=m, device="cpu")
+    good = Q.ControlMasks.perfect(4, N)
+    for m in (Q.ControlMasks.perfect(5, N), Q.ControlMasks.perfect(4, N - 1),
+              Q.ControlMasks(good.skew_ns, good.phase_off[:, :1],
+                             good.skew_miss, good.ctrl_delay, good.ctrl_ok)):
+        with pytest.raises(ValueError, match="do not cover"):
+            Q.simulate(tables, wl, cfg, 4, control=m, device="cpu")
+    Q.simulate(tables, wl, cfg, 4, failures=Q.FailureMasks.healthy(4, N),
+               control=good, device="cpu")
+
+
+def test_still_unported_raise_or_are_absent():
+    """What stays unported refuses or is absent, never a stub: the
+    device-resident compiler, and the repair and reroute layer of the
+    reference's failures module (ROADMAP Queue 1 items 6 and 7)."""
+    sched = Q.round_robin(6, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        Q.vlb(sched, compile_impl="jnp")
+    from repro_torch.core import failures
+    for name in ("repair", "backup_tables", "backup_tables_dp",
+                 "fast_reroute", "simulate_phased"):
+        assert not hasattr(failures, name) and not hasattr(Q, name), name
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Shared helpers of the PyTorch port's parity suites: carry the
-reference's deployed state and workload over to the port, run both
-simulators, and compare the results field for field, values and dtypes
-(``test_torch_fabric.py``, ``test_torch_fabric_mechanisms.py``); and
+reference's deployed state, workload and masks over to the port, run both
+simulators, and compare the results field for field, values and dtypes,
+telemetry counters included (``test_torch_fabric*.py``,
+``test_torch_telemetry.py``); and
 ``release_compiled_programs``, which every port suite that compiles JAX
 programs imports.
 """
@@ -23,18 +24,44 @@ def carry(tables, wl):
             workload_from_arrays(dataclasses.asdict(wl)))
 
 
+def carry_masks(failures=None, control=None):
+    """The reference's ``FailureMasks`` / ``ControlMasks`` (or ``None``) as
+    the port's."""
+    if failures is not None:
+        failures = Q.FailureMasks(failures.link_cap.copy(),
+                                  failures.node_ok.copy())
+    if control is not None:
+        control = Q.ControlMasks(**{f.name: getattr(control, f.name)
+                                    for f in dataclasses.fields(control)})
+    return failures, control
+
+
+def _assert_arrays_equal(a, b, name):
+    assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+    assert a.shape == b.shape, (name, a.shape, b.shape)
+    np.testing.assert_array_equal(a, b, err_msg=name)
+
+
 def assert_sim_equal(ref, port):
     """Every field of the port's ``SimResult`` equals the reference's, in
-    value, shape and dtype; the reference ran without telemetry."""
-    assert ref.telemetry is None
+    value, shape and dtype, and so does every field of their telemetry
+    counters (both ``None`` when the runs had no telemetry)."""
     names = [f.name for f in dataclasses.fields(port)]
-    assert names == [f.name for f in dataclasses.fields(ref)
-                     if f.name != "telemetry"]
+    assert names == [f.name for f in dataclasses.fields(ref)]
     for name in names:
-        a, b = getattr(ref, name), getattr(port, name)
-        assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
-        assert a.shape == b.shape, (name, a.shape, b.shape)
-        np.testing.assert_array_equal(a, b, err_msg=name)
+        if name != "telemetry":
+            _assert_arrays_equal(getattr(ref, name), getattr(port, name),
+                                 name)
+    assert (ref.telemetry is None) == (port.telemetry is None)
+    if ref.telemetry is not None:
+        fields = [f.name for f in dataclasses.fields(port.telemetry)]
+        assert fields == [f.name for f in dataclasses.fields(ref.telemetry)]
+        for name in fields:
+            a, b = getattr(ref.telemetry, name), getattr(port.telemetry, name)
+            if name == "lat_edges":
+                assert a == b
+            else:
+                _assert_arrays_equal(a, b, f"telemetry.{name}")
 
 
 def simulate_both(tables, wl, num_slices, **cfg):
