@@ -9,10 +9,12 @@ their plain versions, per output row; the RG-LRU scan against its plain
 version, whole and per channel, and replayed from a CUDA graph), phase 12
 (the grouped matmul against its plain version, per output row), phase
 15 (a 4-layer full-width Qwen3-30B-A3B through the kernels against the
-plain versions) and phase 17 (the 108-ToR main path with failure and
+plain versions), phase 17 (the 108-ToR main path with failure and
 control masks and telemetry: its deferred-bytes counter against the packet
-state, and its first 48 slices against the CPU's) catch a wrong kernel or
-a wrong step. For the unchanged tree and for each
+state, and its first 48 slices against the CPU's), phase 18 (the same
+path in unequal windows against the one-shot run) and phase 19 (phased
+table swaps: they must change the run) catch a wrong kernel or a wrong
+step. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -37,7 +39,9 @@ FLASH, ADM = CSRC / "flash_attention.cu", CSRC / "admission.cu"
 RG, RG_WRAPPER = CSRC / "rg_lru.cu", Path("src/repro_torch/kernels/rg_lru.py")
 TFL = CSRC / "time_flow_lookup.cu"
 FABRIC = Path("src/repro_torch/core/fabric.py")
-PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17")
+FAILURES = Path("src/repro_torch/core/failures.py")
+PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
+          "phase 18", "phase 19")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -131,6 +135,15 @@ FAULTS = {
         FABRIC, "        if has_tele:\n"
         "            count_(s[\"_tdef\"], cl(s[\"loc\"]), size, missed)\n",
         "", ("phase 17",)),
+    # a window's masked capacities built from the schedule's slice 0, not
+    # from the window's first slice
+    "window capacities unshifted": (
+        FABRIC, 'j.get("node_ok"), mt0 if has_fail else 0)',
+        'j.get("node_ok"), 0)', ("phase 18",)),
+    # a phased run that never swaps its tables in
+    "phased swap skipped": (
+        FAILURES, "            fs.j.update(fabric_mod._table_arrays(tables, "
+        "fs.device))\n", "", ("phase 19",)),
 }
 CHECKS = """
 import sys, torch
@@ -187,6 +200,15 @@ if "phase 17" in phases:
     except SystemExit as e:
         print(f"phase 17: {e}")
         failed.append("phase 17")
+for phase, check in (("phase 18", lambda: cs.check_service(
+                          dev, dict(wall_s=float("nan")))),
+                     ("phase 19", lambda: cs.check_phased(dev))):
+    if phase in phases:
+        try:
+            print(phase, check())
+        except SystemExit as e:
+            print(f"{phase}: {e}")
+            failed.append(phase)
 print("FAILED:", ", ".join(failed) or "none", flush=True)
 """
 LAST_SPLIT = "one valid slot, in the last split"

@@ -106,6 +106,32 @@ Phases, each fatal on failure:
    require every ``SimResult`` field and every telemetry counter equal.
    Print slices/s, device time and kernels launched per slice beside
    phases 4 and 6.
+18. Run the clocked service at phase 17's size, faults and telemetry. The
+   fabric's incremental API (``init_state`` with the packets injected
+   before slice 72, the rest ingested in two batches at slices 72 and
+   96, ``step_slices`` in 15 windows of unequal length, some of one
+   slice, some crossing a fault's start or heal, each given its rows of
+   the masks) against the one-shot ``simulate`` of the union on the card,
+   every field and counter. Then ``OpenOpticsNet``'s service (``ingest``
+   three batches, ``advance`` in windows of 16): every window's
+   ``snapshot`` groups sum to its totals and its counters are the
+   ``service_result``'s summed; the first 48 slices against the CPU's,
+   every field and counter; ten more 214-slice windows of fresh demand,
+   with the peak device memory of the first and the last. Launch counts
+   of both runs zeroed before and read after; the wall time a slice of
+   ``advance`` beside phase 17's ``run``, the kernels a slice of one
+   profiled window, and a window's set-up (the packed table, the masked
+   capacities, the whole step).
+19. Run phased table swaps at the same size: ``vlb`` with 4 paths under
+   phase 17's failure trace, the deployed tables up to ToR 17's outage,
+   ``fast_reroute`` with ``backup_tables_dp`` at its failed links until
+   the heal, ``repair("vlb", ...)`` over the links still failed after it.
+   One phase equals ``simulate`` on the card; the three phases' first 48
+   slices equal the CPU's; the patched and repaired tables pass
+   ``toolkit.check_tables`` with the failed links. Print the share
+   delivered per phase beside the oblivious run, and the host seconds of
+   ``backup_tables``, ``backup_tables_dp``, ``fast_reroute`` and
+   ``repair``.
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -1245,15 +1271,18 @@ def main_workload():
     return wl
 
 
-def faulty_net(sched):
+def faulty_net(sched, device="cuda", telemetry=None):
     """The 108-ToR net of phase 4 (default fabric, ``vlb`` with 4 paths)
     with phase 17's faults injected through the user API: a ToR outage
     healed at slice 120, a dead link, a degraded link and a stuck port; a
     ToR one slice behind, one a slice ahead, one whose residual skew
-    passes the 200 ns guard band, and one that drifts."""
+    passes the 200 ns guard band, and one that drifts. ``telemetry``: the
+    net's counter config (read by its clocked service only)."""
     from repro_torch.core import OpenOpticsNet, vlb
-    net = OpenOpticsNet(dict(node="rack", node_num=N_TORS, uplink=1,
-                             slice_us=SLICE_US), device="cuda")
+    cfg = dict(node="rack", node_num=N_TORS, uplink=1, slice_us=SLICE_US)
+    if telemetry is not None:
+        cfg["telemetry"] = telemetry
+    net = OpenOpticsNet(cfg, device=device)
     assert net.deploy_topo(sched)
     net.deploy_routing(vlb(sched, kpaths=4), LOOKUP="hop", MULTIPATH="packet")
     slice_ns = SLICE_US * 1000.0
@@ -1374,6 +1403,323 @@ def check_masked_path(dev, profile: bool = True) -> dict:
         raise SystemExit(f"phase 17: CUDA and CPU differ in {bad}")
     out["cpu_check_s"] = time.perf_counter() - t0
     return out
+
+
+# phase 18's windows: unequal, some of one slice, some crossing a fault's
+# start or heal (20, 30, 40, 120, 150, 180); the demand batches join at 72
+# and 96 (the main workload injects up to slice 110)
+SERVICE_CUTS = (0, 1, 10, 11, 25, 45, 72, 73, 96, 121, 144, 145, 151, 179,
+                181, SLICES)
+BATCH_STARTS = (72, 96)
+NET_WINDOW = 16
+NET_BATCH_CLOCKS = (0, 64, 96)      # the net ingests each batch then
+EXTRA_WINDOWS = 10
+
+
+def demand_batches(wl):
+    """Phase 18's three batches of the main workload, by inject slice:
+    before 72, [72, 96) and from 96; and their union, the batches one
+    after the other."""
+    from repro_torch.core import Workload
+    edges = (0,) + BATCH_STARTS + (1 << 30,)
+    picks = [np.flatnonzero((wl.t_inject >= a) & (wl.t_inject < b))
+             for a, b in zip(edges, edges[1:])]
+    sub = lambda idx: Workload(**{f.name: getattr(wl, f.name)[idx]
+                                  for f in dataclasses.fields(Workload)})
+    return [sub(i) for i in picks], sub(np.concatenate(picks))
+
+
+def counters_summed(tele) -> dict:
+    """A ``SimResult``'s telemetry as the service's snapshot sums it."""
+    return dict(
+        injected_bytes=tele.injected_bytes.sum(0),
+        delivered_bytes=tele.delivered_bytes.sum(0),
+        deferred_bytes=tele.deferred_bytes.sum(0),
+        dropped_bytes=tele.dropped_bytes.sum(0),
+        queue_hwm=tele.queue_hwm.max(0), util_used=tele.util_used.sum(0),
+        util_cap=tele.util_cap.sum(0), lat_hist=tele.lat_hist.sum(0))
+
+
+def check_frame(frame, res, tag):
+    """The snapshot's packet and byte groups sum to its totals, and its
+    counters are the ``service_result``'s telemetry summed."""
+    for unit in ("packets", "bytes"):
+        g = frame[unit]
+        if g["total"] != g["pending"] + g["in_flight"] + g["delivered"] + \
+                g["dropped"]:
+            raise SystemExit(f"phase 18 {tag}: {unit} groups {g} do not "
+                             "sum to the total")
+    if frame["packets"]["total"] != res.t_deliver.shape[0]:
+        raise SystemExit(f"phase 18 {tag}: snapshot and result disagree on "
+                         "the packet count")
+    for k, v in counters_summed(res.telemetry).items():
+        if not np.array_equal(frame["counters"][k], v):
+            raise SystemExit(f"phase 18 {tag}: snapshot counter {k} is not "
+                             "the result's summed")
+
+
+def run_service(net, batches, upto, on_window=None):
+    """Drive ``net``'s clocked service from its clock to ``upto`` in
+    windows of 16 slices, ingesting each demand batch at its clock (its
+    inject slices made relative to the clock); ``on_window(net)`` after
+    each advance. Returns the wall seconds spent in ``advance``."""
+    wall = 0.0
+    while net._clock < upto:
+        if net._clock in NET_BATCH_CLOCKS:
+            wl = batches[NET_BATCH_CLOCKS.index(net._clock)]
+            net.ingest(dataclasses.replace(
+                wl, t_inject=wl.t_inject - np.int32(net._clock)))
+        n = min(NET_WINDOW, upto - net._clock)
+        t0 = time.perf_counter()
+        net.advance(n)                  # ends in a copy to the host
+        wall += time.perf_counter() - t0
+        if on_window is not None:
+            on_window(net)
+    return wall
+
+
+def check_service(dev, masked) -> dict:
+    """Phase 18: the clocked service at the main path's size. The fabric's
+    incremental API in unequal windows with three demand batches against
+    the one-shot run of their union; ``OpenOpticsNet``'s service in
+    windows of 16, its frames against its results, its first 48 slices
+    against the CPU's; ten more windows of fresh demand for the peak
+    memory; the set-up a window costs. Raises ``SystemExit`` on a
+    mismatch; returns the numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (FabricTables, TelemetryConfig,
+                                  compile_control, compile_masks, finalize,
+                                  ingest, init_state, round_robin, simulate,
+                                  step_slices, synthesize)
+    from repro_torch.core.fabric import (_add_masks, _build_caps,
+                                         _make_step, _mask_window,
+                                         stack_tables)
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    wl = main_workload()
+    batches, union = demand_batches(wl)
+    tele = TelemetryConfig()
+    ref_net = faulty_net(sched)
+    cfg = ref_net.fabric_cfg
+    tables = FabricTables.build(sched, ref_net.routing)
+    fail = compile_masks(ref_net.failure_trace, sched, SLICES)
+    ctrl = compile_control(ref_net.control_trace, SLICES, N_TORS,
+                           slice_ns=SLICE_US * 1000.0)
+    want = dict(tfl=SLICES * (1 + cfg.hops_per_slice),
+                adm=SLICES * cfg.hops_per_slice)
+    out = dict(windows=[b - a for a, b in zip(SERVICE_CUTS,
+                                               SERVICE_CUTS[1:])],
+               batches=[b.num_packets for b in batches])
+    if not all(out["batches"]):
+        raise SystemExit(f"phase 18: an empty demand batch {out['batches']}")
+
+    # 1. the fabric's incremental API, the counts zeroed just before and
+    # read just after; the one-shot run of the union on the card
+    torch.cuda.synchronize()
+    tfl.launches = adm.launches = 0
+    t0 = time.perf_counter()
+    fs = init_state(tables, batches[0], cfg, tele, device="cuda")
+    for a, b in zip(SERVICE_CUTS, SERVICE_CUTS[1:]):
+        if a in BATCH_STARTS:
+            ingest(fs, batches[1 + BATCH_STARTS.index(a)])
+        step_slices(fs, b - a, *_mask_window(fail, ctrl, a, b))
+    windowed = finalize(fs)
+    out["fabric_windows_wall_s"] = time.perf_counter() - t0
+    launches = dict(tfl=tfl.launches, adm=adm.launches)
+    if launches != want:
+        raise SystemExit(f"phase 18: windowed launches {launches} (want "
+                         f"{want})")
+    one = simulate(tables, union, cfg, SLICES, failures=fail, control=ctrl,
+                   telemetry=tele, device="cuda")
+    bad = sim_diff(windowed, one)
+    if bad is not None:
+        raise SystemExit(f"phase 18: windowed and one-shot runs differ in "
+                         f"{bad}")
+    out["fabric_launches"] = launches
+    out["delivered"] = float((one.t_deliver >= 0).mean())
+
+    # 2. the net's service in windows of 16: frames against results, one
+    # window profiled, the counts zeroed just before and read just after
+    net = faulty_net(sched, telemetry={})
+    at48 = {}
+    prof_window = (32, 48)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_window(n):
+        if n._clock == prof_window[1]:
+            prof.stop()
+        res = n.service_result()
+        check_frame(n.snapshot(), res, f"clock {n._clock}")
+        if n._clock == CPU_SLICES:
+            at48["res"] = res
+        if n._clock == prof_window[0]:
+            torch.cuda.synchronize()
+            prof.start()
+    torch.cuda.synchronize()
+    tfl.launches = adm.launches = 0
+    wall = run_service(net, batches, SLICES, on_window)
+    launches = dict(tfl=tfl.launches, adm=adm.launches)
+    if launches != want:
+        raise SystemExit(f"phase 18: service launches {launches} (want "
+                         f"{want})")
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
+    nsl = prof_window[1] - prof_window[0]
+    out.update(
+        service_launches=launches,
+        advance_wall_ms_per_slice=wall * 1e3 / SLICES,
+        run_wall_ms_per_slice=masked["wall_s"] * 1e3 / SLICES,
+        service_kernels_per_slice=sum(e.count for e in ev if not e.key
+                                      .startswith(("Memcpy", "Memset")))
+        / nsl,
+        service_device_ms_per_slice=sum(self_device_ms(e) for e in ev) / nsl,
+        service_delivered=float((net.service_result().t_deliver >= 0)
+                                .mean()))
+
+    # 3. the set-up a window pays: the packed table, the capacities of
+    # the window's masks, the whole step (which builds both)
+    fs = net._service
+    jw = dict(fs.j)
+    _add_masks(jw, *net._window_masks(NET_WINDOW), NET_WINDOW)
+    jw["mask_t0"] = fs.clock
+
+    def setup_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    out["setup_ms"] = dict(
+        packed_table=setup_ms(lambda: stack_tables(
+            jw["inj_next"], jw["inj_dep"], jw["tf_next"], jw["tf_dep"])),
+        caps=setup_ms(lambda: _build_caps(jw["conn"], cfg, N_TORS,
+                                          jw["link_cap"], jw["node_ok"],
+                                          fs.clock)),
+        step=setup_ms(lambda: _make_step(jw, cfg, True, tele)))
+
+    # 4. the first 48 slices of the service on the CPU
+    t0 = time.perf_counter()
+    cpu_net = faulty_net(sched, device="cpu", telemetry={})
+    run_service(cpu_net, batches, CPU_SLICES)
+    bad = sim_diff(at48["res"], cpu_net.service_result())
+    if bad is not None:
+        raise SystemExit(f"phase 18: service on CUDA and CPU differ in {bad}")
+    out["cpu_check_s"] = time.perf_counter() - t0
+
+    # 5. ten more windows of fresh demand: the peak device memory of each
+    NKEY = N_TORS * (N_TORS + 1)
+    peaks, packets = [], []
+    t0 = time.perf_counter()
+    for i in range(EXTRA_WINDOWS):
+        net.ingest(synthesize("rpc", N_TORS, 64, slice_bytes=75_000,
+                              load=0.4, max_packets=1 << 14, seed=100 + i))
+        torch.cuda.reset_peak_memory_stats()
+        net.advance(SLICES)
+        peaks.append(torch.cuda.max_memory_allocated())
+        packets.append(net._service.num_packets)
+    out["extra_windows_wall_s"] = time.perf_counter() - t0
+    res = net.service_result()
+    check_frame(net.snapshot(), res, f"clock {net._clock}")
+    out.update(
+        peak_mib_first=peaks[0] / 2 ** 20, peak_mib_last=peaks[-1] / 2 ** 20,
+        packets_first=packets[0], packets_last=packets[-1],
+        clock_last=net._clock,
+        window_caps_mib=SLICES * NKEY * 4 / 2 ** 20,
+        whole_run_caps_mib=net._clock * NKEY * 4 / 2 ** 20)
+    return out
+
+
+def check_phased(dev) -> dict:
+    """Phase 19: phased table swaps at the main path's size. ``vlb`` with
+    4 paths under phase 17's failure trace: the deployed tables up to the
+    ToR outage, a fast reroute with destination-aware backups at its
+    failed links, a repair over the links still failed after the heal.
+    Raises ``SystemExit`` on a mismatch; returns the numbers."""
+    from repro_torch.core import (FabricTables, backup_tables,
+                                  backup_tables_dp, compile_masks,
+                                  fast_reroute, repair, round_robin,
+                                  simulate, simulate_phased, toolkit)
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    wl = main_workload()
+    net = faulty_net(sched)
+    cfg, routing = net.fabric_cfg, net.routing
+    out_t, heal_t = 20, 120             # ToR 17's outage
+    fail = compile_masks(net.failure_trace, sched, SLICES)
+    f_out, f_heal = fail.failed_links(out_t), fail.failed_links(heal_t)
+
+    host = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        host[name] = time.perf_counter() - t0
+        return r
+    timed("backup_tables_s", lambda: backup_tables(sched))
+    bk = timed("backup_tables_dp_s", lambda: backup_tables_dp(sched))
+    patched = timed("fast_reroute_s",
+                    lambda: fast_reroute(routing, sched, f_out, backups=bk))
+    repaired = timed("repair_s",
+                     lambda: repair(sched, "vlb", f_heal, kpaths=4))
+    for tag, r, f in (("patched", patched, f_out),
+                      ("repaired", repaired, f_heal)):
+        bad = toolkit.check_tables(sched, r, link_fail=f, check_walks=False)
+        if bad:
+            raise SystemExit(f"phase 19: {tag} tables fail check_tables: "
+                             f"{bad[:3]}")
+    phases = [(routing, out_t), (patched, heal_t - out_t),
+              (repaired, SLICES - heal_t)]
+
+    # 1. one phase equals the one-shot run (the oblivious run: the
+    # deployed tables throughout)
+    tables = FabricTables.build(sched, routing)
+    obl = simulate(tables, wl, cfg, SLICES, failures=fail, device="cuda")
+    one = simulate_phased(sched, [(routing, SLICES)], wl, cfg,
+                          failures=fail, device="cuda")
+    bad = sim_diff(obl, one)
+    if bad is not None:
+        raise SystemExit(f"phase 19: one phase and simulate differ in {bad}")
+    # 2. three phases, the counts zeroed just before and read just after
+    torch.cuda.synchronize()
+    tfl.launches = adm.launches = 0
+    t0 = time.perf_counter()
+    res = simulate_phased(sched, phases, wl, cfg, failures=fail,
+                          device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(tfl=tfl.launches, adm=adm.launches)
+    want = dict(tfl=SLICES * (1 + cfg.hops_per_slice),
+                adm=SLICES * cfg.hops_per_slice)
+    if launches != want:
+        raise SystemExit(f"phase 19: launches {launches} (want {want})")
+    if np.array_equal(res.t_deliver, obl.t_deliver):
+        raise SystemExit("phase 19: the swapped tables changed no delivery")
+    # 3. the first 48 slices of the three phases on the card and the CPU
+    t0 = time.perf_counter()
+    f48 = compile_masks(net.failure_trace, sched, CPU_SLICES)
+    p48 = [(routing, out_t), (patched, CPU_SLICES - out_t)]
+    runs = [simulate_phased(sched, p48, wl, cfg, failures=f48, device=d)
+            for d in ("cuda", "cpu")]
+    bad = sim_diff(*runs)
+    if bad is not None:
+        raise SystemExit(f"phase 19: CUDA and CPU differ in {bad}")
+    cpu_s = time.perf_counter() - t0
+    offered = float(wl.size.astype(np.int64).sum())
+    share = {}
+    for tag, r in (("oblivious", obl), ("phased", res)):
+        d = r.delivered_bytes.astype(np.int64)
+        share[tag] = [float(d[a:b].sum()) / offered for a, b in
+                      ((0, out_t), (out_t, heal_t), (heal_t, SLICES))]
+        share[tag + "_total"] = float((r.t_deliver >= 0).mean())
+    return dict(host_s=host, launches=launches, wall_s=wall,
+                failed_links=dict(outage=int(f_out.sum()),
+                                  after_heal=int(f_heal.sum())),
+                share_delivered=share, cpu_check_s=cpu_s)
 
 
 def sim_diff(a, b):
@@ -1733,6 +2079,34 @@ def main() -> int:
         f"{kernels_per_slice:.2f}); 48 slices equal on CUDA and CPU, every "
         f"field and counter")
 
+    # -- 18. the clocked service ----------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    service = check_service(dev, masked)
+    log(f"phase 18 clocked service (failures, control, telemetry), "
+        f"{SLICES} slices: {json.dumps(service)}")
+    log(f"phase 18 beside phase 17: advance {service['advance_wall_ms_per_slice']:.3f}"
+        f" ms a slice in windows of {NET_WINDOW} (run: "
+        f"{service['run_wall_ms_per_slice']:.3f}); kernels launched a slice "
+        f"{service['service_kernels_per_slice']:.2f} (phase 17: "
+        f"{masked['kernels_per_slice']:.2f}); set-up a window "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in service["setup_ms"].items())
+        + f"; peak device memory {service['peak_mib_first']:.1f} MiB after "
+        f"the first extra window ({service['packets_first']} packets), "
+        f"{service['peak_mib_last']:.1f} MiB after the last "
+        f"({service['packets_last']} packets, clock "
+        f"{service['clock_last']}); a window's masked capacities "
+        f"{service['window_caps_mib']:.1f} MiB, the whole run's would be "
+        f"{service['whole_run_caps_mib']:.1f} MiB; windowed run equal to the "
+        f"one-shot run, 48 slices of the service equal on CUDA and CPU")
+
+    # -- 19. phased table swaps -------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phased = check_phased(dev)
+    log(f"phase 19 phased swaps (deployed, fast reroute, repair), {SLICES} "
+        f"slices: {json.dumps(phased)}")
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -1776,6 +2150,9 @@ def main() -> int:
              **bound(tfl_bytes, tfl_ops),
              library_ms=None, launch_floor_ms=timings["tfl_floor_ms"],
              masked_path_launches=masked["launches"]["tfl"],
+             service_path_launches=service["service_launches"]["tfl"],
+             windowed_path_launches=service["fabric_launches"]["tfl"],
+             phased_path_launches=phased["launches"]["tfl"],
              packed_ms=timings["tfl_packed_ms"],
              new_form={tag: dict(ms=timings[f"tfl_new_{tag}_ms"],
                                  mask_density=d, **new_form_bound(d))
@@ -1801,6 +2178,9 @@ def main() -> int:
              **bound(adm_bytes, adm_ops),
              library_ms=None, launch_floor_ms=timings["adm_floor_ms"],
              masked_path_launches=masked["launches"]["adm"],
+             service_path_launches=service["service_launches"]["adm"],
+             windowed_path_launches=service["fabric_launches"]["adm"],
+             phased_path_launches=phased["launches"]["adm"],
              rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
                          **bound(adm_rx_bytes, adm_ops))),
     ]

@@ -30,11 +30,17 @@ results field for field.
   (:mod:`.failures`), control-plane masks (:mod:`.controlplane`) and
   telemetry counters (:mod:`.telemetry`) each add their branches to the
   step only when given, so a run without them is the same program. The
-  masks go to the device once per run; a skewed ToR's lookups read its
+  masks go to the device once per window; a skewed ToR's lookups read its
   local slice through the lookup kernel's per-node offset.
+* The incremental API (:func:`init_state`, :func:`ingest`,
+  :func:`step_slices`, :func:`finalize`) splits the run into windows and
+  carries the packet state across them; :func:`simulate` is one window.
+  A window's masks cover only that window (row 0 its first slice), and a
+  step is built per window, since an ingest grows the packet population
+  the step captures.
 * The reference's versioned tables (its reconfigure loop's installs), and
-  its sharded, batched and incremental entry points are not ported yet
-  (ROADMAP Queue 1 items 5, 6 and 9).
+  its sharded and batched entry points are not ported yet (ROADMAP Queue 1
+  items 6 and 9).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -52,8 +58,9 @@ from .telemetry import TelemetryConfig, TelemetryCounters, counters_from_out
 from .topology import Schedule
 
 __all__ = ["FabricConfig", "Workload", "FabricTables", "SimResult",
-           "simulate", "tables_from_arrays", "workload_from_arrays",
-           "resolve_device"]
+           "FabricState", "simulate", "simulate_incremental", "init_state",
+           "ingest", "step_slices", "finalize", "tables_from_arrays",
+           "workload_from_arrays", "resolve_device"]
 
 NOT_INJECTED = -1
 DELIVERED = -2
@@ -197,17 +204,18 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
-                node_ok=None):
+                node_ok=None, t0: int = 0):
     """Per-circuit capacity ``[R, N*(N+1)]``, keyed loc*(N+1)+peer; key
     loc*(N+1)+N is the electrical egress. Without failure masks the R rows
     are the T slices of the cycle: a circuit admits ``slice_bytes``, an
-    egress ``elec_bytes``. With them (``link_cap`` ``[S, N, N]``,
-    ``node_ok`` ``[S, N]``) the rows are the S slices of the run, the
-    reference's per-slice ``caps_at`` for all of them at once: a circuit
-    keeps ``link_cap`` of ``slice_bytes``, the degraded product in float32
-    truncated toward zero, a healthy (>= 1) or dead (<= 0) link exact; a
-    down ToR's electrical egress gets nothing. The result takes
-    4·R·N·(N+1) bytes: with masks, about as much again as ``link_cap``."""
+    egress ``elec_bytes``. With them (``link_cap`` ``[W, N, N]``,
+    ``node_ok`` ``[W, N]``) the rows are the W slices of the window that
+    starts at absolute slice ``t0``, the reference's per-slice ``caps_at``
+    for all of them at once: a circuit keeps ``link_cap`` of
+    ``slice_bytes``, the degraded product in float32 truncated toward
+    zero, a healthy (>= 1) or dead (<= 0) link exact; a down ToR's
+    electrical egress gets nothing. The result takes 4·R·N·(N+1) bytes:
+    with masks, about as much again as the window's ``link_cap``."""
     T, _, U = conn.shape
     dev = conn.device
     R = T if link_cap is None else link_cap.shape[0]
@@ -215,7 +223,7 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
     caps = torch.zeros((R, NKEY), dtype=_I32, device=dev)
     rows = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
     rrows = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
-    conn_r = conn[torch.arange(R, device=dev) % T]             # [R, N, U]
+    conn_r = conn[(torch.arange(R, device=dev) + t0) % T]      # [R, N, U]
     flat = caps.view(-1)
     for k in range(U):
         peer = conn_r[:, :, k].to(torch.int64)                # [R, N]
@@ -288,11 +296,13 @@ def _init_state(j, num_flows: int):
 def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                telemetry: TelemetryConfig | None = None):
     """Build ``step(state, t) -> stats`` over the tensors in ``j``; the
-    step updates ``state`` (a dict of tensors) for slice ``t``. The
-    reference's single-device ``_make_step`` at full width, with its
+    step updates ``state`` (a dict of tensors) for absolute slice ``t``.
+    The reference's single-device ``_make_step`` at full width, with its
     failure (``j["link_cap"]``, ``j["node_ok"]``), control
     (``j["phase_off"]``, ``j["skew_miss"]``) and telemetry branches, each
-    present only when its input is."""
+    present only when its input is. The masks' row 0 is absolute slice
+    ``j["mask_t0"]`` (0 when absent): a window's masks cover only that
+    window. The step captures the packet count, so it serves one window."""
     T, N, _ = j["conn"].shape
     P = j["src"].shape[0]
     dev = j["src"].device
@@ -305,10 +315,12 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     has_fail = "link_cap" in j
     has_ctrl = "phase_off" in j
     has_tele = telemetry is not None
+    mt0 = j.get("mask_t0", 0)        # the masks' first absolute slice
     spill = pid + N if has_tele else None   # counters' spill slots (count_)
-    # [S, NKEY] with failure masks, else [T, NKEY]
+    # [W, NKEY] for the window's W slices with failure masks, else [T, NKEY]
+    # for the cycle
     caps_rows = _build_caps(j["conn"], cfg, N, j.get("link_cap"),
-                            j.get("node_ok"))
+                            j.get("node_ok"), mt0 if has_fail else 0)
 
     # packed (injection, transit) tables for the fused first-phase lookup
     table = stack_tables(j["inj_next"], j["inj_dep"], j["tf_next"],
@@ -383,12 +395,12 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
 
     def step(s, t: int):
         h = t if per_packet_mp else flow_hash
-        caps = caps_rows[t if has_fail else t % T]
+        caps = caps_rows[t - mt0 if has_fail else t % T]
         # this slice's rows of the masks: node liveness, each ToR's whole
         # slices of clock skew and its guard-band misses
-        no_t = j["node_ok"][t] if has_fail else None
-        po_t = j["phase_off"][t] if has_ctrl else None
-        sm_t = j["skew_miss"][t] if has_ctrl else None
+        no_t = j["node_ok"][t - mt0] if has_fail else None
+        po_t = j["phase_off"][t - mt0] if has_ctrl else None
+        sm_t = j["skew_miss"][t - mt0] if has_ctrl else None
         if has_tele:
             # per-slice counters, emitted with the stats at the end; each
             # has P spill slots past its N counters (count_)
@@ -599,13 +611,14 @@ _TELE_STEP_KEYS = ("tele_injected", "tele_deferred", "tele_dropped",
 
 
 def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
-                        num_slices: int):
+                        num_slices: int, t0: int = 0):
     """Per-slice delivered rows ``[S, N]`` and latency histogram ``[S, B]``
-    from the final packet state (the reference's ``_tele_delivery_rows``):
+    of the window of ``num_slices`` slices from absolute slice ``t0``, from
+    the packet state at its end (the reference's ``_tele_delivery_rows``):
     ``t_del`` is written once, so one scatter over the packets equals
     accumulating ``t_del == t`` rows slice by slice. A delivery outside
-    the run (an electrical one landing after the last slice) scatters
-    nothing."""
+    ``[t0, t0 + num_slices)`` (in an earlier window, or an electrical one
+    landing after the window) scatters nothing."""
     N = j["conn"].shape[1]
     dev = final["t_del"].device
     rows = torch.zeros((num_slices, N), dtype=_I32, device=dev)
@@ -614,8 +627,9 @@ def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
     if num_slices == 0:
         return rows, hist
     t_del = final["t_del"]
-    ok = (t_del >= 0) & (t_del < num_slices)
-    relc = t_del.clamp(0, num_slices - 1).to(torch.int64)
+    rel = t_del - t0
+    ok = (rel >= 0) & (rel < num_slices)
+    relc = rel.clamp(0, num_slices - 1).to(torch.int64)
     dst = j["dst"].clamp(0, N - 1).to(torch.int64)
     rows.view(-1).index_add_(0, relc * N + dst, torch.where(ok, j["size"], 0))
     # bucket i counts latencies in (edges[i-1], edges[i]]; the last is
@@ -628,20 +642,21 @@ def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
     return rows, hist
 
 
-def _sim_out(final, ys: list, j, telemetry: TelemetryConfig | None,
-             num_slices: int) -> dict:
-    """The result dict from the final state and the per-slice stats,
-    stacked on the device and copied to the host once per field; with
-    telemetry the ``tele_*`` rows too."""
+def _window_out(final, ys: list, j, telemetry: TelemetryConfig | None,
+                num_slices: int, t0: int) -> dict:
+    """A window's per-slice rows as host numpy (``[num_slices, ...]``
+    each): the step's stats, stacked on the device and copied to the host
+    once per key; with telemetry also the ``tele_*`` rows, the delivered
+    rows and latency histogram from the packet state at the window's
+    end."""
     N = j["conn"].shape[1]
-    out = dict(t_deliver=final["t_del"], loc_final=final["loc"],
-               nhops=final["nhops"], reorder_cnt=final["reorder"])
     dev = final["loc"].device
+    out = {}
     shapes = dict(_STAT_SHAPES)
     if telemetry is not None:
         shapes.update(dict.fromkeys(_TELE_STEP_KEYS))
         out["tele_delivered"], out["tele_lat_hist"] = _tele_delivery_rows(
-            final, j, telemetry, num_slices)
+            final, j, telemetry, num_slices, t0)
     for k, shape in shapes.items():
         if ys:
             out[k] = torch.stack([y[k] for y in ys])
@@ -651,23 +666,32 @@ def _sim_out(final, ys: list, j, telemetry: TelemetryConfig | None,
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def _i32(a, dev):
+    return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+
+def _table_arrays(tables: FabricTables, dev) -> dict:
+    """The schedule and tables as tensors on ``dev``."""
+    return {k: _i32(getattr(tables, k), dev) for k in _TABLE_FIELDS}
+
+
+def _packet_arrays(wl: Workload, dev) -> dict:
+    """The workload's fields as tensors on ``dev`` (copies: the step never
+    writes to the caller's arrays)."""
+    return {f.name: (torch.tensor(np.asarray(wl.is_eleph, bool), device=dev)
+                     if f.name == "is_eleph" else
+                     _i32(getattr(wl, f.name), dev))
+            for f in dataclasses.fields(Workload)}
+
+
 def _device_arrays(tables: FabricTables, wl: Workload, dev) -> dict:
-    """The schedule, tables and workload as tensors on ``dev`` (copies:
-    the step never writes to the caller's arrays)."""
-    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
-    return dict(
-        conn=i32(tables.conn), tf_next=i32(tables.tf_next),
-        tf_dep=i32(tables.tf_dep), inj_next=i32(tables.inj_next),
-        inj_dep=i32(tables.inj_dep), first_direct=i32(tables.first_direct),
-        src=i32(wl.src), dst=i32(wl.dst), size=i32(wl.size),
-        t_inject=i32(wl.t_inject), flow=i32(wl.flow), seq=i32(wl.seq),
-        is_eleph=torch.tensor(np.asarray(wl.is_eleph, bool), device=dev),
-    )
+    """The schedule, tables and workload as tensors on ``dev``."""
+    return _table_arrays(tables, dev) | _packet_arrays(wl, dev)
 
 
 def _add_masks(j, failures, control, num_slices: int) -> None:
-    """Check that the masks cover the run and add them to ``j`` as tensors
-    on its device, once per run (``None`` adds nothing)."""
+    """Check that the masks cover the window and add them to ``j`` as
+    tensors on its device (``None`` adds nothing)."""
     N = j["conn"].shape[1]
     dev = j["conn"].device
     if failures is not None:
@@ -684,11 +708,153 @@ def _add_masks(j, failures, control, num_slices: int) -> None:
                                          dtype=torch.bool, device=dev)
 
 
+def _mask_window(failures, control, t0: int, t1: int):
+    """Rows ``[t0, t1)`` of masks that cover a whole run, as that window's
+    own masks (``None`` stays ``None``)."""
+    if failures is not None:
+        failures = dataclasses.replace(
+            failures, link_cap=failures.link_cap[t0:t1],
+            node_ok=failures.node_ok[t0:t1])
+    if control is not None:
+        control = dataclasses.replace(control, **{
+            k: getattr(control, k)[t0:t1] for k in (
+                "skew_ns", "phase_off", "skew_miss", "ctrl_delay",
+                "ctrl_ok")})
+    return failures, control
+
+
+# ---------------------------------------------------------------------------
+# incremental runs: the run split into windows, the state carried across
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FabricState:
+    """A run between windows (the reference's ``FabricState``).
+
+    ``j`` holds the deployed tables and the packets ingested so far, as
+    tensors on one device and without masks (a window's masks are its
+    own); ``state`` is the packet and queue state the step leaves;
+    ``clock`` is the absolute slice the next window starts at; ``chunks``
+    holds each window's per-slice rows as host numpy, which
+    :func:`finalize` joins."""
+
+    j: dict
+    state: dict
+    cfg: FabricConfig
+    telemetry: TelemetryConfig | None
+    per_packet_mp: bool
+    num_flows: int
+    clock: int = 0
+    chunks: list = dataclasses.field(default_factory=list)
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.j["conn"].shape[1])
+
+    @property
+    def num_packets(self) -> int:
+        return int(self.j["src"].shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.j["src"].device
+
+
+def _num_flows(wl: Workload) -> int:
+    return int(max(wl.flow.max() + 1, 1)) if wl.num_packets else 1
+
+
+def init_state(tables: FabricTables, wl: Workload | None, cfg: FabricConfig,
+               telemetry: TelemetryConfig | None = None,
+               device=None) -> FabricState:
+    """Open an incremental run: the deployed tables and the first packets
+    (``None`` for an empty fabric; :func:`ingest` adds packets later), on
+    ``device`` (CUDA by default; ``"cpu"`` for the plain versions)."""
+    dev = resolve_device(device)
+    if wl is None:
+        wl = Workload(**{f.name: np.zeros((0,), bool if f.name == "is_eleph"
+                                          else np.int32)
+                         for f in dataclasses.fields(Workload)})
+    j = _device_arrays(tables, wl, dev)
+    num_flows = _num_flows(wl)
+    return FabricState(j=j, state=_init_state(j, num_flows), cfg=cfg,
+                       telemetry=telemetry,
+                       per_packet_mp=tables.multipath == "packet",
+                       num_flows=num_flows)
+
+
+def ingest(fs: FabricState, wl: Workload) -> FabricState:
+    """Join new packets to a live run. ``wl.t_inject`` and ``wl.flow`` are
+    absolute: inject slices already past fire at the next slice, and a
+    flow id in use continues that flow's in-order tracking
+    (:meth:`repro_torch.core.net.OpenOpticsNet.ingest` shifts both)."""
+    P = wl.num_packets
+    if P == 0:
+        return fs
+    dev = fs.device
+    for k, v in _packet_arrays(wl, dev).items():
+        fs.j[k] = torch.cat([fs.j[k], v])
+    s = fs.state
+    for k, fill in (("loc", NOT_INJECTED), ("nxt", -1), ("dep", 0),
+                    ("nhops", 0), ("t_del", -1)):
+        s[k] = torch.cat([s[k], torch.full((P,), fill, dtype=_I32,
+                                           device=dev)])
+    s["relook"] = torch.cat([s["relook"], torch.zeros((P,), dtype=torch.bool,
+                                                      device=dev)])
+    nf = _num_flows(wl)
+    if nf > fs.num_flows:
+        s["max_seq"] = torch.cat([s["max_seq"], torch.full(
+            (nf - fs.num_flows,), -1, dtype=_I32, device=dev)])
+        fs.num_flows = nf
+    return fs
+
+
+def step_slices(fs: FabricState, num_slices: int, failures=None,
+                control=None) -> FabricState:
+    """Advance the run ``num_slices`` slices from its clock.
+
+    ``failures`` / ``control`` cover this window only (``[num_slices,
+    ...]`` rows, row 0 the clock's slice); each adds its branches to this
+    window's step only when given, as in :func:`simulate`. The state
+    carries on from the last window, so a run split into any windows
+    equals the one-shot run. The step is built anew for each window: the
+    packet count it captures grows with :func:`ingest`."""
+    n = int(num_slices)
+    if n < 0:
+        raise ValueError(f"num_slices must be >= 0, got {num_slices}")
+    t0 = fs.clock
+    jw = dict(fs.j)
+    _add_masks(jw, failures, control, n)
+    if failures is not None or control is not None:
+        jw["mask_t0"] = t0
+    step = _make_step(jw, fs.cfg, fs.per_packet_mp, fs.telemetry)
+    ys = [step(fs.state, t) for t in range(t0, t0 + n)]
+    fs.chunks.append(_window_out(fs.state, ys, jw, fs.telemetry, n, t0))
+    fs.clock += n
+    return fs
+
+
+def finalize(fs: FabricState) -> SimResult:
+    """The :class:`SimResult` of the windows run so far, as the one-shot
+    :func:`simulate` would return it. The run stays live, so this may be
+    called as a checkpoint between windows."""
+    chunks = fs.chunks or [_window_out(fs.state, [], fs.j, fs.telemetry, 0,
+                                       fs.clock)]
+    s = fs.state
+    out = {k: v.cpu().numpy() for k, v in (
+        ("t_deliver", s["t_del"]), ("loc_final", s["loc"]),
+        ("nhops", s["nhops"]), ("reorder_cnt", s["reorder"]))}
+    out.update({k: np.concatenate([c[k] for c in chunks])
+                for k in chunks[0]})
+    tele = counters_from_out(out, fs.telemetry)
+    return SimResult(**out, telemetry=tele)
+
+
 def simulate(tables: FabricTables, wl: Workload, cfg: FabricConfig,
              num_slices: int, failures=None, control=None, telemetry=None,
              device=None) -> SimResult:
     """Run the fabric for ``num_slices`` slices (the reference's
-    ``simulate``).
+    ``simulate``): one window of the incremental API.
 
     Args:
         tables: deployed state (host numpy; see :class:`FabricTables`).
@@ -718,13 +884,31 @@ def simulate(tables: FabricTables, wl: Workload, cfg: FabricConfig,
     optional input that is ``None`` leaves its branches out of the step.
     Returns a :class:`SimResult` of host numpy arrays.
     """
-    dev = resolve_device(device)
-    j = _device_arrays(tables, wl, dev)
-    _add_masks(j, failures, control, num_slices)
-    num_flows = int(max(wl.flow.max() + 1, 1)) if wl.num_packets else 1
-    step = _make_step(j, cfg, tables.multipath == "packet", telemetry)
-    state = _init_state(j, num_flows)
-    ys = [step(state, t) for t in range(num_slices)]
-    out = _sim_out(state, ys, j, telemetry, num_slices)
-    tele = counters_from_out(out, telemetry)
-    return SimResult(**out, telemetry=tele)
+    fs = init_state(tables, wl, cfg, telemetry, device)
+    return finalize(step_slices(fs, num_slices, failures, control))
+
+
+def simulate_incremental(tables: FabricTables, wl: Workload,
+                         cfg: FabricConfig, num_slices: int,
+                         window: int | None = None, failures=None,
+                         control=None,
+                         telemetry: TelemetryConfig | None = None,
+                         device=None) -> SimResult:
+    """:func:`simulate` replayed through the incremental API in windows of
+    ``window`` slices (default: one window), each window given its rows of
+    the run's masks. Equal to the one-shot run in every field and
+    counter."""
+    window = num_slices if window is None else int(window)
+    if window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    N = tables.conn.shape[1]
+    if failures is not None:
+        failures.validate(num_slices, N)
+    if control is not None:
+        control.validate(num_slices, N)
+    fs = init_state(tables, wl, cfg, telemetry, device)
+    while fs.clock < num_slices:
+        t0 = fs.clock
+        t1 = min(t0 + window, num_slices)
+        step_slices(fs, t1 - t0, *_mask_window(failures, control, t0, t1))
+    return finalize(fs)

@@ -11,11 +11,19 @@ Typical user program (paper Fig. 5)::
     net.deploy_routing(vlb(sched))              # paths -> time-flow tables
     res = net.run(workload, num_slices=1000)    # on the GPU
 
+    net.ingest(batch)                           # or as a clocked service:
+    net.advance(16)                             # 16 slices, state carried
+    frame = net.snapshot()                      # packets, bytes, counters
+
 The net runs on CUDA unless built with ``device="cpu"``. Faults injected
 with :meth:`OpenOpticsNet.inject_failure` / :meth:`~OpenOpticsNet.inject_control`
-apply to the :meth:`~OpenOpticsNet.run` windows they touch. The reference's
-clocked-service API (``ingest``, ``advance``, ``snapshot``), the one reader
-of the net's telemetry config, is not ported yet (ROADMAP Queue 1 item 5).
+apply to the :meth:`~OpenOpticsNet.run` and :meth:`~OpenOpticsNet.advance`
+windows they touch. The clocked service (:meth:`~OpenOpticsNet.ingest`,
+:meth:`~OpenOpticsNet.advance`, :meth:`~OpenOpticsNet.snapshot`,
+:meth:`~OpenOpticsNet.service_result`) runs on
+:func:`repro_torch.core.fabric.step_slices` and counts with the net's
+telemetry config; :meth:`~OpenOpticsNet.run` does not count, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -23,13 +31,14 @@ import dataclasses
 
 import numpy as np
 
+from . import fabric as fabric_mod
 from . import routing as routing_mod
 from .controlplane import ControlTrace, compile_control
-from .fabric import (FabricConfig, FabricTables, SimResult, Workload,
-                     resolve_device, simulate)
+from .fabric import (FabricConfig, FabricState, FabricTables, SimResult,
+                     Workload, resolve_device, simulate)
 from .failures import FailureTrace, compile_masks
 from .routing import CompiledRouting
-from .telemetry import TelemetryConfig
+from .telemetry import TELE_KEYS, TelemetryConfig
 from .topology import Schedule, deploy_topo_check
 
 __all__ = ["OpenOpticsNet", "clos_routing"]
@@ -61,15 +70,16 @@ class OpenOpticsNet:
         self._last_tm = np.zeros((self.n_nodes, self.n_nodes), dtype=np.float64)
         self._last_result: SimResult | None = None
         self._last_workload: Workload | None = None
-        self._clock = 0  # slices elapsed across run() windows
+        self._clock = 0  # slices elapsed across run() / advance() windows
         self.failure_trace = FailureTrace()
         self.control_trace = ControlTrace()
         tele = config.get("telemetry", None)
         if isinstance(tele, dict):
             tele = TelemetryConfig(**tele)
-        # stored for the clocked service (not ported yet); run() does not
-        # count, as in the reference
+        # the clocked service counts with it; run() does not, as in the
+        # reference
         self.telemetry: TelemetryConfig | None = tele
+        self._service: FabricState | None = None
 
     # -- Topology APIs ------------------------------------------------------
     def deploy_topo(self, sched: Schedule) -> bool:
@@ -190,22 +200,27 @@ class OpenOpticsNet:
         return int(per_slice.mean())
 
     # -- Execution -------------------------------------------------------------
+    def _window_masks(self, num_slices: int):
+        """The failure and control masks of the window of ``num_slices``
+        slices from the net's clock; ``None`` for a trace that does not
+        touch it, so only windows a fault can touch pay the mask
+        branches."""
+        t0, t1 = self._clock, self._clock + num_slices
+        masks = ctrl = None
+        if self.failure_trace.active_in(t0, t1):
+            masks = compile_masks(self.failure_trace, self.schedule,
+                                  num_slices, t0=t0)
+        if self.control_trace.active_in(t0, t1):
+            ctrl = compile_control(
+                self.control_trace, num_slices, self.n_nodes,
+                slice_ns=self.slice_us * 1000.0, t0=t0)
+        return masks, ctrl
+
     def run(self, wl: Workload, num_slices: int) -> SimResult:
         if self.schedule is None or self.routing is None:
             raise RuntimeError("deploy_topo and deploy_routing first")
         tables = FabricTables.build(self.schedule, self.routing)
-        masks = ctrl = None
-        # only windows a fault can touch pay the mask branches; their masks
-        # are compiled at the net's clock
-        if self.failure_trace.active_in(self._clock,
-                                        self._clock + num_slices):
-            masks = compile_masks(self.failure_trace, self.schedule,
-                                  num_slices, t0=self._clock)
-        if self.control_trace.active_in(self._clock,
-                                        self._clock + num_slices):
-            ctrl = compile_control(
-                self.control_trace, num_slices, self.n_nodes,
-                slice_ns=self.slice_us * 1000.0, t0=self._clock)
+        masks, ctrl = self._window_masks(num_slices)
         res = simulate(tables, wl, self.fabric_cfg, num_slices,
                        failures=masks, control=ctrl, device=self.device)
         self._last_result = res
@@ -215,6 +230,101 @@ class OpenOpticsNet:
         self._last_tm = tm
         self._clock += num_slices
         return res
+
+    # -- Clocked service: a long-lived fabric, advanced window by window ------
+    def _service_state(self) -> FabricState:
+        if self._service is None:
+            if self.schedule is None or self.routing is None:
+                raise RuntimeError("deploy_topo and deploy_routing first")
+            tables = FabricTables.build(self.schedule, self.routing)
+            self._service = fabric_mod.init_state(
+                tables, None, self.fabric_cfg, self.telemetry,
+                device=self.device)
+            self._service.clock = self._clock
+        return self._service
+
+    def ingest(self, wl: Workload) -> bool:
+        """Join demand to the live fabric (Table-1 service style).
+
+        ``wl.t_inject`` is relative to the net's clock: slice 0 is the
+        first slice of the next :meth:`advance`. Flow ids are offset past
+        every flow ingested so far, so each batch tracks its own in-order
+        sequences. Each ingest copies the packet arrays once, so batches
+        beat single packets."""
+        fs = self._service_state()
+        if wl.num_packets == 0:
+            return True
+        wl = dataclasses.replace(
+            wl, t_inject=wl.t_inject + np.int32(self._clock),
+            flow=wl.flow + np.int32(fs.num_flows))
+        fabric_mod.ingest(fs, wl)
+        return True
+
+    def advance(self, num_slices: int) -> bool:
+        """Advance the live fabric ``num_slices`` slices. Faults injected
+        with :meth:`inject_failure` / :meth:`inject_control` apply as in
+        :meth:`run`; packets in flight, queue occupancy and counters carry
+        across calls, and :meth:`snapshot` reads them without stopping the
+        fabric."""
+        fs = self._service_state()
+        n = int(num_slices)
+        if n <= 0:
+            raise ValueError(f"num_slices must be positive, got {num_slices}")
+        masks, ctrl = self._window_masks(n)
+        fabric_mod.step_slices(fs, n, failures=masks, control=ctrl)
+        self._clock = fs.clock
+        return True
+
+    def snapshot(self) -> dict:
+        """A host-side frame of the live fabric, without stopping it: the
+        service clock, packets and bytes by stage of their life, and (when
+        the net was built with a ``telemetry`` config) the per-ToR counters
+        summed over the windows run and the delivery-latency histogram.
+        ``in_flight`` includes electrical deliveries landing past the
+        clock; ``pending`` packets have not injected yet."""
+        fs = self._service
+        frame = {"clock": self._clock,
+                 "packets": {}, "bytes": {}, "counters": None}
+        if fs is None:
+            zero = dict(total=0, pending=0, in_flight=0, delivered=0,
+                        dropped=0)
+            frame["packets"] = dict(zero)
+            frame["bytes"] = dict(zero)
+            return frame
+        loc = fs.state["loc"].cpu().numpy()
+        t_del = fs.state["t_del"].cpu().numpy()
+        size = fs.j["size"].cpu().numpy().astype(np.int64)
+        NI, DL, DR = (fabric_mod.NOT_INJECTED, fabric_mod.DELIVERED,
+                      fabric_mod.DROPPED)
+        groups = dict(
+            pending=loc == NI,
+            in_flight=(loc >= 0) | ((loc == DL) & (t_del >= fs.clock)),
+            delivered=(loc == DL) & (t_del < fs.clock),
+            dropped=loc == DR)
+        frame["packets"] = {"total": int(loc.size)} | {
+            k: int(m.sum()) for k, m in groups.items()}
+        frame["bytes"] = {"total": int(size.sum())} | {
+            k: int(size[m].sum()) for k, m in groups.items()}
+        if fs.telemetry is not None and fs.chunks:
+            rows = {k: np.concatenate([c[k] for c in fs.chunks])
+                    for k in TELE_KEYS}
+            frame["counters"] = {
+                "injected_bytes": rows["tele_injected"].sum(0),
+                "delivered_bytes": rows["tele_delivered"].sum(0),
+                "deferred_bytes": rows["tele_deferred"].sum(0),
+                "dropped_bytes": rows["tele_dropped"].sum(0),
+                "queue_hwm": rows["tele_qhwm"].max(0),
+                "util_used": rows["tele_util_used"].sum(0),
+                "util_cap": rows["tele_util_cap"].sum(0),
+                "lat_hist": rows["tele_lat_hist"].sum(0),
+                "lat_edges": fs.telemetry.lat_edges,
+            }
+        return frame
+
+    def service_result(self) -> SimResult:
+        """The live fabric as a :class:`SimResult` so far; the service
+        keeps running (:func:`repro_torch.core.fabric.finalize`)."""
+        return fabric_mod.finalize(self._service_state())
 
     def run_ta(self, windows: list[Workload], window_slices: int,
                topo_fn, routing_fn) -> list[SimResult]:

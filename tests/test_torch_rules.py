@@ -92,12 +92,26 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Q.OpenOpticsNet(cfg, device="cuda")
     tables, wl = _small_run_inputs()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Q.simulate(tables, wl, Q.FabricConfig(slice_bytes=4_000), 4)
+    fab = Q.FabricConfig(slice_bytes=4_000)
+    sched = Q.round_robin(6, 1)
+    for call in (lambda: Q.simulate(tables, wl, fab, 4),
+                 lambda: Q.simulate_incremental(tables, wl, fab, 4, window=2),
+                 lambda: Q.init_state(tables, wl, fab),
+                 lambda: Q.init_state(tables, None, fab),
+                 lambda: Q.simulate_phased(sched, [(Q.vlb(sched), 4)], wl,
+                                           fab)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     assert Q.OpenOpticsNet(cfg, device="cpu").device.type == "cpu"
-    res = Q.simulate(tables, wl, Q.FabricConfig(slice_bytes=4_000), 4,
-                     device="cpu")
+    res = Q.simulate(tables, wl, fab, 4, device="cpu")
     assert res.t_deliver.dtype == np.int32
+    # the net's clocked service runs where the net does
+    net = Q.OpenOpticsNet(cfg, device="cpu")
+    net.deploy_topo(sched)
+    net.deploy_routing(Q.vlb(sched))
+    assert net.ingest(wl) and net.advance(4)
+    assert net._service.device.type == "cpu"
+    assert net.service_result().t_deliver.shape == (wl.num_packets,)
 
 
 def test_misshaped_masks_raise():
@@ -125,15 +139,18 @@ def test_misshaped_masks_raise():
 
 def test_still_unported_raise_or_are_absent():
     """What stays unported refuses or is absent, never a stub: the
-    device-resident compiler, and the repair and reroute layer of the
-    reference's failures module (ROADMAP Queue 1 items 6 and 7)."""
+    device-resident compiler, also behind ``repair(impl="jnp")`` (ROADMAP
+    Queue 1 item 6), and the sharded, fleet and reconfigure entry points
+    (items 6 and 9)."""
     sched = Q.round_robin(6, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         Q.vlb(sched, compile_impl="jnp")
-    from repro_torch.core import failures
-    for name in ("repair", "backup_tables", "backup_tables_dp",
-                 "fast_reroute", "simulate_phased"):
-        assert not hasattr(failures, name) and not hasattr(Q, name), name
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        Q.repair(sched, "vlb", np.zeros((6, 6), bool), impl="jnp")
+    from repro_torch.core import fabric
+    for name in ("simulate_sharded", "simulate_fleet", "reconfigure",
+                 "reconfigure_fleet", "ReconfigConfig"):
+        assert not hasattr(fabric, name) and not hasattr(Q, name), name
 
 
 # ---------------------------------------------------------------------------
