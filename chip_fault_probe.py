@@ -12,9 +12,10 @@ version, whole and per channel, and replayed from a CUDA graph), phase 12
 plain versions), phase 17 (the 108-ToR main path with failure and
 control masks and telemetry: its deferred-bytes counter against the packet
 state, and its first 48 slices against the CPU's), phase 18 (the same
-path in unequal windows against the one-shot run) and phase 19 (phased
-table swaps: they must change the run) catch a wrong kernel or a wrong
-step. For the unchanged tree and for each
+path in unequal windows against the one-shot run), phase 19 (phased
+table swaps: they must change the run) and phase 20 (the reconfigure
+loop: its versioned installs against the host replay of their versions
+and against the CPU) catch a wrong kernel or a wrong step. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -40,8 +41,9 @@ RG, RG_WRAPPER = CSRC / "rg_lru.cu", Path("src/repro_torch/kernels/rg_lru.py")
 TFL = CSRC / "time_flow_lookup.cu"
 FABRIC = Path("src/repro_torch/core/fabric.py")
 FAILURES = Path("src/repro_torch/core/failures.py")
+RECONF = Path("src/repro_torch/core/reconfigure.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
-          "phase 18", "phase 19")
+          "phase 18", "phase 19", "phase 20")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -144,6 +146,21 @@ FAULTS = {
     "phased swap skipped": (
         FAILURES, "            fs.j.update(fabric_mod._table_arrays(tables, "
         "fs.device))\n", "", ("phase 19",)),
+    # the lookup reads version 0 whatever the node's vsel says
+    "lookup ignores vsel": (
+        TFL, "  if (a.vsel) v = min(max(__ldg(a.vsel + n), 0), a.V - 1);\n",
+        "", ("phase 2", "phase 20")),
+    # the end-of-epoch merge of each ToR's current tables on the
+    # destination axis (2) of [Tr, N, D, K] instead of the node axis (1)
+    "epoch merge of the current tables on the wrong axis": (
+        RECONF, "swt = torch.as_tensor(sw, device=dev)[None, :, None, None]",
+        "swt = torch.as_tensor(sw, device=dev)[None, None, :, None]",
+        ("phase 20",)),
+    # the end-of-epoch merge skipped: every ToR keeps its boot tables as
+    # its old version
+    "epoch merge of the current tables skipped": (
+        RECONF, "            cur = [torch.where(swt, n, c) for c, n in "
+        "zip(cur, new)]\n", "", ("phase 20",)),
 }
 CHECKS = """
 import sys, torch
@@ -202,7 +219,9 @@ if "phase 17" in phases:
         failed.append("phase 17")
 for phase, check in (("phase 18", lambda: cs.check_service(
                           dev, dict(wall_s=float("nan")))),
-                     ("phase 19", lambda: cs.check_phased(dev))):
+                     ("phase 19", lambda: cs.check_phased(dev)),
+                     ("phase 20", lambda: cs.check_reconfigure(
+                         dev, profile=False))):
     if phase in phases:
         try:
             print(phase, check())

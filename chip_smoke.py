@@ -19,7 +19,12 @@ Phases, each fatal on failure:
    (K of 1 to 12, the two stacks, unequal injection and transit K); and
    with per-node slice offsets drawn from [-2 Tr, 2 Tr] (0 and -1 among
    them) at both lookup sites, at the main path's shape with masks of
-   100%, 10% and 1% and on small tables of every route.
+   100%, 10% and 1% and on small tables of every route; and with the
+   version axis of the reconfigure loop's installs: V of 1 to 3, each
+   version a different table, ``vsel`` the same at every node or drawn per
+   node (some out of range, which clamp), alone and with the offsets, at
+   both sites, at the main path's shape with the three masks and on small
+   tables of every route.
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
    kernel's launch floor (the same call on one packet); split admission's
@@ -27,7 +32,8 @@ Phases, each fatal on failure:
    (two stacks, a hash vector, no mask) and in the port's (the packed
    table, the in-kernel hash, masks of density 100%, 10% and 1%), and the
    port's form with per-node slice offsets beside the same calls without
-   them, in turns.
+   them, in turns; and with offsets and a table version a node, at V = 2
+   and 3, beside the same calls on the unversioned table, in turns.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -133,6 +139,25 @@ Phases, each fatal on failure:
    ``backup_tables``, ``backup_tables_dp``, ``fast_reroute`` and
    ``repair``.
 
+20. Run the traffic-aware reconfigure loop at the same size, 12 epochs of
+   16 slices (192), each epoch measuring the demand, re-deriving the
+   schedule, recompiling the tables on the card and swapping them in:
+   (a) ``k_hot=0`` with ``vlb`` (4 paths), which must equal ``simulate``
+   in every field; (b) ``hot_slices`` (``k_hot=4``) with ``hoho`` under
+   phase 17's control trace plus install loss, delay and a controller
+   stall, once by hotswap and once by 2PC with degrade (and ``edmonds`` by
+   hotswap, whose versions differ in most entries): the epochs with
+   mixed versions and the degraded ones counted (at least one each), each
+   run against a host replay of its versions (each ToR's old tables taken
+   whole from the version it last installed, the installs from the host's
+   ``install_schedule``), and its first 3 epochs against the CPU's, every
+   ``ReconfigResult`` field; (c) ``edmonds`` and ``bvn`` with ``heal``
+   under phase 17's failure masks, each against the host replay of its
+   recorded schedules. Launch counts zeroed before each run and read after;
+   slices/s, an epoch's wall split into measure + schedule, recompile and
+   its slices, the kernels a slice and the lookup's device time of one
+   profiled epoch, peak device memory.
+
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
 or any phase fails.
@@ -236,6 +261,15 @@ def lookup_tables(n, k, lead=(2, 3), seed=1):
     return tn.astype(np.int32), td.astype(np.int32)
 
 
+def versioned_tables(table, V: int = 3):
+    """``[2, V, Tr, N, D, 2, K]`` from the packed ``table``: version 0 the
+    table, version ``v`` its slices rolled by ``v`` and its nodes by
+    ``5 v``, so that a lookup that reads the wrong version reads another
+    entry."""
+    return torch.stack([table.roll((v, 5 * v), dims=(1, 2))
+                        for v in range(V)], dim=1).contiguous()
+
+
 def check_lookup(dev, table):
     """Kernel vs plain version for the lookup: the TPU's form (two stacks,
     a hash vector, no mask) over the main-path shape and the edge shapes,
@@ -265,16 +299,19 @@ def check_lookup(dev, table):
         return sum(r[0] for r in res), max(r[1] for r in res)
 
     def new_case(tbl, P, seed, density=None, t=None, offsets=False,
-                 per_packet=True):
+                 per_packet=True, vsel=None):
         """The port's form on ``tbl`` (packed, or a (next, dep) pair):
         a mask of the given density (None: no mask), the in-kernel hash of
         slice t (None: a hash vector), per-node slice offsets drawn from
         [-2 Tr, 2 Tr] with 0 and -1 among them (offsets), a selector per
-        packet or the hop site's constant 1 (per_packet); the plain version
-        gets the hash vector ``salted_hash`` makes for t."""
+        packet or the hop site's constant 1 (per_packet), a table version
+        per node (vsel: None, "uniform" the last version at every node,
+        "mixed" drawn per node, "clamped" drawn from [-1, V] so some
+        clamp); the plain version gets the hash vector ``salted_hash``
+        makes for t."""
         rng = np.random.default_rng(seed)
         tn, td = (tbl, None) if isinstance(tbl, torch.Tensor) else tbl
-        Tr, N, D = tn.shape[1:4]
+        V, Tr, N, D, _ = tfl.table_dims(tn, td)
         node, dst = t32(rng.integers(0, N, P)), t32(rng.integers(0, D, P))
         sel = t32(rng.integers(0, 2, P)) if per_packet else 1
         mask = None if density is None else torch.tensor(
@@ -284,6 +321,14 @@ def check_lookup(dev, table):
             po = rng.integers(-2 * Tr, 2 * Tr + 1, N)
             po[:2] = (0, -1)
             po = t32(po)
+        vs = None
+        if vsel == "uniform":
+            vs = t32(np.full(N, V - 1))
+        elif vsel is not None:
+            lo, hi = (-1, V + 1) if vsel == "clamped" else (0, V)
+            vs = rng.integers(lo, hi, N)
+            vs[:V] = np.arange(V)           # every version read somewhere
+            vs = t32(vs)
         tm = int(rng.integers(0, Tr))
         if t is None:
             hv = t32(rng.integers(-2 ** 31, 2 ** 31, P))
@@ -293,9 +338,11 @@ def check_lookup(dev, table):
             hv_plain = tfl.salted_hash(
                 torch.arange(P, dtype=torch.int64, device=dev), t)
         got = poisoned(lambda: tfl.time_flow_lookup(
-            tn, td, tm, sel, node, dst, hv, mask=mask, phase_off=po))
+            tn, td, tm, sel, node, dst, hv, mask=mask, phase_off=po,
+            vsel=vs))
         want = tfl.time_flow_lookup_plain(tn, td, tm, sel, node, dst,
-                                          hv_plain, mask, phase_off=po)
+                                          hv_plain, mask, phase_off=po,
+                                          vsel=vs)
         torch.cuda.synchronize()
         res = [mismatch(g, w) for g, w in zip(got, want)]
         return sum(r[0] for r in res), max(r[1] for r in res)
@@ -357,6 +404,34 @@ def check_lookup(dev, table):
         padded = stack_tables(*(t32(a) for a in inj + tf))
         new_cases.append((f"small K inj {k_inj} transit {k_tf} padded",
                           padded, 4097, dict(density=0.5, t=9)))
+    # the version axis (the reconfigure loop's installs): V of 1 to 3 at
+    # the main path's shape, every version a different table (the slices
+    # and the nodes rolled), vsel the same at every node or drawn per node,
+    # alone and with offsets, at both sites and three densities; then small
+    # tables of every row-load route
+    vtab = versioned_tables(table)
+    vtabs = {V: vtab[:, :V].contiguous() for V in (1, 2, 3)}
+    for V in (1, 2, 3):
+        for d in (1.0, 0.1, 0.01):
+            for mode in ("uniform", "mixed"):
+                for offs in (False, True):
+                    for site, per_packet in (("fused", True), ("hop",
+                                                               False)):
+                        new_cases.append((
+                            f"versioned V={V} P=131072 vsel {mode}"
+                            f"{', offsets' if offs else ''}, {site} site, "
+                            f"mask {d}", vtabs[V], 1 << 17,
+                            dict(density=d, t=213, offsets=offs,
+                                 per_packet=per_packet, vsel=mode)))
+    for k in (1, 2, 3, 4, 6, 8, 12):
+        tn, td = lookup_tables(10, k, lead=(2, 3, 4), seed=50 + k)
+        packed = t32(np.stack([tn, td], axis=-2))
+        new_cases.append((f"small K={k} packed V=3 vsel clamped, offsets",
+                          packed, 4097, dict(density=0.5, t=7, offsets=True,
+                                             vsel="clamped")))
+        new_cases.append((f"small K={k} stacks V=3 vsel mixed, hop site",
+                          (t32(tn), t32(td)), 4097,
+                          dict(density=0.5, per_packet=False, vsel="mixed")))
     for i, (name, tbl, P, kw) in enumerate(new_cases):
         m, e = new_case(tbl, P, seed=200 + i, **kw)
         log(f"  lookup {name}: mismatches={m}")
@@ -1722,6 +1797,358 @@ def check_phased(dev) -> dict:
                 share_delivered=share, cpu_check_s=cpu_s)
 
 
+# phase 20: the traffic-aware reconfigure loop at the main path's width
+RECONF_E, RECONF_EPOCHS = 16, 12
+RECONF_SLICES = RECONF_E * RECONF_EPOCHS       # 192
+RECONF_CPU_EPOCHS = 3                          # 48 slices again on the CPU
+RECONF_PROFILED_EPOCH = 5
+
+
+def reconf_net(sched):
+    """Phase 17's net (its faults and its four skewed ToRs) with
+    table-install faults injected too: every install message lost with
+    probability 0.1, ToR 33's delayed 3 slices over 64-127, and the
+    controller stalled over slices 100-103."""
+    net = faulty_net(sched)
+    net.inject_control("install_loss", loss=0.1, t_start=0)
+    net.inject_control("install_delay", node=33, delay=3, t_start=64,
+                       t_end=128)
+    net.inject_control("stall", t_start=100, t_end=104)
+    return net
+
+
+def as_sim(res):
+    """The ``SimResult`` fields of a ``ReconfigResult``."""
+    from repro_torch.core import SimResult
+    return SimResult(**{f.name: getattr(res, f.name)
+                        for f in dataclasses.fields(SimResult)})
+
+
+def reconfig_diff(a, b):
+    """The first field in which two ``ReconfigResult``s differ (value,
+    shape or dtype), telemetry included; None when they are equal."""
+    bad = sim_diff(as_sim(a), as_sim(b))
+    if bad is not None:
+        return bad
+    for name in ("hot_src", "hot_dst", "demand_total", "epoch_conn",
+                 "failed_links", "install_ver", "install_lat",
+                 "install_retries", "degraded"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            return name
+    return None
+
+
+class EpochClock:
+    """Host clocks around the loop's recompiles and windows, each
+    synchronised with the card, and the profiler around one epoch's
+    window: patched into the modules the loop calls them through, for one
+    run."""
+
+    def __init__(self, profile_epoch=None):
+        self.compile_s, self.window_s = [], []
+        self.profile_epoch = profile_epoch
+        self.prof = None
+        self.prof_s = 0.0            # the profiler's own start and stop
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core import fabric as fabric_mod, routing_jnp
+        self._mods = (routing_jnp, fabric_mod)
+        self._real = (routing_jnp.compile_tables, fabric_mod.step_slices)
+        real_compile, real_window = self._real
+
+        def compile_tables(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_compile(*a, **k)
+            torch.cuda.synchronize()
+            self.compile_s.append(time.perf_counter() - t0)
+            return out
+
+        def step_slices(*a, **k):
+            prof = None
+            if len(self.window_s) == self.profile_epoch:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if prof is not None:
+                prof.start()
+            t1 = time.perf_counter()
+            out = real_window(*a, **k)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            self.window_s.append(t2 - t1)
+            if prof is not None:
+                prof.stop()
+                self.prof = prof
+                self.prof_s += time.perf_counter() - t2 + t1 - t0
+            return out
+        routing_jnp.compile_tables = compile_tables
+        fabric_mod.step_slices = step_slices
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0].compile_tables, self._mods[1].step_slices = self._real
+
+
+def replay_versions(sched, wl, cfg, rcfg, ctrl, res, dev):
+    """Phase 20(b)'s independent check of the versioned installs: each
+    epoch's recorded schedule compiled by the host ``hoho``; each ToR's old
+    tables taken whole from the version it last installed (the boot tables
+    for -1); the install decisions from the host's ``install_schedule``
+    and the degrade rule; the epoch run through ``step_slices`` with those
+    versions. Returns the replayed ``SimResult`` and the first per-epoch
+    field (``install_ver``, ``install_lat``, ``install_retries``,
+    ``degraded``) that differs from ``res``, or None."""
+    from repro_torch.core import (FabricTables, Schedule, direct, finalize,
+                                  hoho, init_state, install_schedule,
+                                  step_slices)
+    from repro_torch.core.fabric import _mask_window, _table_arrays
+    NEVER = 1 << 30
+    E, N = rcfg.epoch_slices, N_TORS
+    U = sched.conn.shape[2]
+    conn0 = (np.concatenate([sched.conn, np.full((rcfg.k_hot, N, U), -1,
+                                                 np.int32)])
+             if rcfg.scheduler == "hot_slices"
+             else np.full((1, N, U), -1, np.int32))     # edmonds
+    fields = ("tf_next", "tf_dep", "inj_next", "inj_dep")
+    host = lambda r: [getattr(r, f) for f in fields]
+    r0 = hoho(Schedule(conn0))
+    per_ver = {-1: host(r0)}
+    sr = direct(Schedule(conn0))
+    safe = [np.concatenate([a, np.full(a.shape[:-1] + (b.shape[-1] -
+                                                       a.shape[-1],), fill,
+                                       np.int32)], -1)
+            for a, b, fill in zip(host(sr), per_ver[-1], (-1, 0, -1, 0))]
+    fs = init_state(FabricTables.build(Schedule(conn0), r0), wl, cfg,
+                    device=dev)
+    ver = np.full(N, -1, np.int64)
+    bad = None
+    for e in range(rcfg.num_epochs):
+        t0 = e * E
+        sched_e = Schedule(res.epoch_conn[e])
+        r_e = hoho(sched_e)
+        per_ver[e] = host(r_e)
+        # each ToR's current tables: whole, from its last installed version
+        old = [np.stack([per_ver[int(ver[n])][i][:, n] for n in range(N)],
+                        axis=1) for i in range(4)]
+        if rcfg.install == "2pc":
+            info = install_schedule(ctrl, t0, retries=rcfg.install_retries,
+                                    backoff=rcfg.install_backoff,
+                                    timeout=rcfg.install_timeout)
+            switch = np.full(N, info["act"] if info["success"] else NEVER)
+            lat, ret = info["latency"], info["retries_used"]
+            success = info["success"]
+        else:
+            info = install_schedule(ctrl, t0, backoff=rcfg.install_backoff)
+            switch, ret = info["arr"], 0
+            success = info["act"] < NEVER
+            lat = info["act"] - t0 if success else -1
+        tis = t0 + np.arange(E)
+        vsel = (tis[:, None] >= switch[None, :]).astype(np.int32)
+        degraded = False
+        if rcfg.degrade:
+            t_degr = t0 if ctrl.skew_miss[t0:t0 + E].any() else NEVER
+            if not success:
+                t_degr = min(t_degr, t0 + rcfg.install_timeout)
+            vsel = np.where(tis[:, None] >= t_degr, 2, vsel).astype(np.int32)
+            degraded = t_degr < NEVER
+        vers = [old, per_ver[e]] + ([safe] if rcfg.degrade else [])
+        versions = {f + "_v": torch.tensor(np.stack([v[i] for v in vers]),
+                                           device=dev)
+                    for i, f in enumerate(fields)}
+        versions["vsel"] = torch.tensor(vsel, device=dev)
+        fs.j.update(_table_arrays(FabricTables.build(sched_e, r_e), dev))
+        _, cw = _mask_window(None, ctrl, t0, t0 + E)
+        step_slices(fs, E, control=cw, versions=versions)
+        ver = np.where(switch <= t0 + E - 1, e, ver)
+        for name, got, want in (("install_ver", ver, res.install_ver[e]),
+                                ("install_lat", lat, res.install_lat[e]),
+                                ("install_retries", ret,
+                                 res.install_retries[e]),
+                                ("degraded", degraded, res.degraded[e])):
+            if bad is None and not np.array_equal(got, want):
+                bad = f"{name} of epoch {e}"
+    return finalize(fs), bad
+
+
+def check_reconfigure(dev, profile: bool = True) -> dict:
+    """Phase 20: the reconfigure loop at the main path's width, 12 epochs
+    of 16 slices. (a) ``k_hot=0`` with ``vlb`` equals ``simulate``; (b)
+    ``hot_slices`` with ``hoho`` under phase 17's control trace with
+    install faults, by hotswap and by 2PC with degrade: mixed versions
+    and degraded epochs counted, each run against the host replay of its
+    versions, and its first 3 epochs against the CPU's; (c) ``edmonds``
+    and ``bvn`` with ``heal`` under phase 17's failure masks, each against
+    the host replay of its recorded schedules. Raises ``SystemExit`` on a
+    mismatch; returns the numbers."""
+    from repro_torch.core import (FabricTables, ReconfigConfig, Schedule,
+                                  compile_control, compile_masks, finalize,
+                                  hoho, init_state, reconfigure, round_robin,
+                                  simulate, step_slices, vlb)
+    from repro_torch.core.fabric import _mask_window, _table_arrays
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    wl = main_workload()
+    net = reconf_net(sched)
+    cfg = net.fabric_cfg
+    slice_ns = SLICE_US * 1000.0
+    fail = compile_masks(net.failure_trace, sched, RECONF_SLICES)
+    ctrl = compile_control(net.control_trace, RECONF_SLICES, N_TORS,
+                           slice_ns=slice_ns)
+    fail.on_device(dev)
+    E = RECONF_E
+    base = dict(epoch_slices=E, num_epochs=RECONF_EPOCHS)
+    want_l = dict(tfl=RECONF_SLICES * (1 + cfg.hops_per_slice),
+                  adm=RECONF_SLICES * cfg.hops_per_slice)
+    out = {}
+
+    def run(tag, rcfg, **kw):
+        torch.cuda.synchronize()
+        tfl.launches = adm.launches = 0
+        t0 = time.perf_counter()
+        res = reconfigure(sched, wl, cfg, rcfg, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        launches = dict(tfl=tfl.launches, adm=adm.launches)
+        if launches != want_l:
+            raise SystemExit(f"phase 20 {tag}: launches {launches} (want "
+                             f"{want_l})")
+        done = res.t_deliver >= 0
+        out[tag] = dict(wall_s=wall, slices_per_s=RECONF_SLICES / wall,
+                        delivered=float(done.mean()), launches=launches)
+        return res
+
+    # (a) k_hot = 0: the recompile loop alone, equal to simulate
+    rc_a = ReconfigConfig(**base, scheme="vlb", k_hot=0, kpaths=4)
+    res_a = run("a_vlb_k0", rc_a)
+    sim_a = simulate(FabricTables.build(sched, vlb(sched, kpaths=4)), wl,
+                     cfg, RECONF_SLICES, device="cuda")
+    bad = sim_diff(sim_a, as_sim(res_a))
+    if bad is not None:
+        raise SystemExit(f"phase 20(a): reconfigure and simulate differ in "
+                         f"{bad}")
+
+    # (b) versioned installs under the control trace; a hotswap run of
+    # edmonds too, whose matchings change from epoch to epoch, so that a
+    # stale ToR's old tables differ from its peers' in most entries
+    for tag, kw in (("b_hotswap", dict(install="hotswap")),
+                    ("b_2pc_degrade", dict(install="2pc", degrade=True)),
+                    ("b_hotswap_edmonds", dict(install="hotswap",
+                                               scheduler="edmonds"))):
+        rcfg = ReconfigConfig(**base, scheme="hoho", k_hot=4, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = run(tag, rcfg, control=ctrl)
+        peak = torch.cuda.max_memory_allocated()
+        out[tag].update(peak_mib=peak / 2 ** 20,
+                        loop_peak_mib=(peak - held) / 2 ** 20)
+        iv = res.install_ver
+        out[tag].update(
+            mixed_epochs=int((iv != iv[:, :1]).any(axis=1).sum()),
+            degraded_epochs=int(res.degraded.sum()),
+            install_lat=res.install_lat.tolist(),
+            install_retries=res.install_retries.tolist(),
+            stale_tor_epochs=int((iv != np.arange(RECONF_EPOCHS)[:, None])
+                                 .sum()))
+        if tag.startswith("b_hotswap") and not out[tag]["mixed_epochs"]:
+            raise SystemExit("phase 20(b): no hotswap epoch ended with mixed "
+                             "versions")
+        if tag == "b_2pc_degrade" and not out[tag]["degraded_epochs"]:
+            raise SystemExit("phase 20(b): no 2PC epoch degraded")
+        t0 = time.perf_counter()
+        replay, bad_ep = replay_versions(sched, wl, cfg, rcfg, ctrl, res,
+                                         dev)
+        bad = bad_ep or sim_diff(replay, as_sim(res))
+        if bad is not None:
+            raise SystemExit(f"phase 20(b) {tag}: the run and the host replay "
+                             f"of its versions differ in {bad}")
+        out[tag]["replay_s"] = time.perf_counter() - t0
+        # the first 3 epochs on the card and on the CPU, every field
+        t0 = time.perf_counter()
+        r3 = dataclasses.replace(rcfg, num_epochs=RECONF_CPU_EPOCHS)
+        _, c3 = _mask_window(None, ctrl, 0, RECONF_CPU_EPOCHS * E)
+        runs3 = [reconfigure(sched, wl, cfg, r3, control=c3, device=d)
+                 for d in ("cuda", "cpu")]
+        bad = reconfig_diff(*runs3)
+        if bad is not None:
+            raise SystemExit(f"phase 20(b) {tag}: CUDA and CPU differ in "
+                             f"{bad}")
+        bad = sim_diff(as_sim(runs3[0]), dataclasses.replace(
+            as_sim(runs3[0]), **{k: getattr(res, k)[:E * RECONF_CPU_EPOCHS]
+                                 for k in ("delivered_bytes", "dropped",
+                                           "buf_bytes", "offl_bytes",
+                                           "blocked_inj", "slice_miss")}))
+        if bad is not None:
+            raise SystemExit(f"phase 20(b) {tag}: the 3-epoch run is not the "
+                             f"12-epoch run's start ({bad})")
+        out[tag]["cpu_check_s"] = time.perf_counter() - t0
+
+    # where an epoch's time goes: the hotswap run once more, its recompiles
+    # and windows on synchronised clocks, one epoch's window profiled
+    if profile:
+        from torch.autograd import DeviceType
+        rcfg = ReconfigConfig(**base, scheme="hoho", k_hot=4)
+        with EpochClock(profile_epoch=RECONF_PROFILED_EPOCH) as clk:
+            t0 = time.perf_counter()
+            reconfigure(sched, wl, cfg, rcfg, control=ctrl, device="cuda")
+            wall = time.perf_counter() - t0 - clk.prof_s
+        comp = sum(clk.compile_s[-RECONF_EPOCHS:])
+        win = sum(clk.window_s)
+        ev = [e for e in clk.prof.key_averages()
+              if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
+        dev_ms = sum(self_device_ms(e) for e in ev)
+        kernels = sum(e.count for e in ev if not e.key.startswith(
+            ("Memcpy", "Memset")))
+        tfl_ev = [e for e in ev if "tfl_kernel" in e.key]
+        out["epoch"] = dict(
+            wall_ms=wall * 1e3 / RECONF_EPOCHS,
+            measure_schedule_ms=(wall - comp - win - clk.compile_s[0])
+            * 1e3 / RECONF_EPOCHS,
+            boot_compile_ms=clk.compile_s[0] * 1e3,
+            recompile_ms=comp * 1e3 / RECONF_EPOCHS,
+            slices_ms=win * 1e3 / RECONF_EPOCHS,
+            profiled_kernels_per_slice=kernels / E,
+            profiled_device_ms_per_slice=dev_ms / E,
+            lookup_us_per_call=(sum(self_device_ms(e) for e in tfl_ev) * 1e3
+                                / max(sum(e.count for e in tfl_ev), 1)))
+        for e in sorted(ev, key=lambda e: -self_device_ms(e))[:8]:
+            log(f"  {self_device_ms(e) / E:8.4f} ms/slice "
+                f"{self_device_ms(e) / dev_ms:6.1%} x{e.count // E:<4d}/slice "
+                f"{e.key[:100]}")
+
+    # (c) demand schedulers with heal under the failure masks, against the
+    # host replay of their recorded schedules
+    for scheduler in ("edmonds", "bvn"):
+        tag = f"c_{scheduler}_heal"
+        rcfg = ReconfigConfig(**base, scheme="hoho", scheduler=scheduler,
+                              heal=True)
+        res = run(tag, rcfg, failures=fail)
+        if not (res.failed_links > 0).any():
+            raise SystemExit(f"phase 20(c) {tag}: no failed link detected")
+        t0 = time.perf_counter()
+        fs = None
+        for e in range(RECONF_EPOCHS):
+            sched_e = Schedule(res.epoch_conn[e])
+            tables = FabricTables.build(sched_e, hoho(sched_e))
+            if fs is None:
+                fs = init_state(tables, wl, cfg, device="cuda")
+            else:
+                fs.j.update(_table_arrays(tables, fs.device))
+            fw, _ = _mask_window(fail, None, e * E, (e + 1) * E)
+            step_slices(fs, E, failures=fw)
+        bad = sim_diff(finalize(fs), as_sim(res))
+        if bad is not None:
+            raise SystemExit(f"phase 20(c) {tag}: the run and its host replay "
+                             f"differ in {bad}")
+        out[tag].update(replay_s=time.perf_counter() - t0,
+                        failed_links=res.failed_links.tolist(),
+                        dark_circuits=int((res.epoch_conn < 0).sum()))
+    return out
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -1764,6 +2191,7 @@ def main() -> int:
     from repro_torch.kernels import _build, admission as adm
     from repro_torch.kernels import time_flow_lookup as tfl
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1860,6 +2288,34 @@ def main() -> int:
     timings["tfl_new_floor_ms"] = graph_ms(new_form(1.0, P=1))
     timings["tfl_new_off_floor_ms"] = graph_ms(new_form(1.0, P=1,
                                                         po=phase_off))
+    # the version axis (phase 20's controlled path: offsets and a version a
+    # node): V = 2 and 3, a version drawn per node, beside the same calls
+    # on the unversioned table, in turns: without, V 2, V 3, V 3, V 2,
+    # without
+    vrng = np.random.default_rng(4)
+    vtabs = {V: versioned_tables(table, V) for V in (2, 3)}
+    vsels = {V: t32(vrng.integers(0, V, N_TORS)) for V in (2, 3)}
+
+    def ver_form(d, V=None, P=P):
+        tb = table if V is None else vtabs[V]
+        vs = None if V is None else vsels[V]
+        return lambda: tfl.time_flow_lookup(tb, None, 5, sel[:P], node[:P],
+                                            dstv[:P], 213, mask=masks[d][:P],
+                                            phase_off=phase_off, vsel=vs)
+    for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1")):
+        runs = [graph_ms(ver_form(d, V)) for V in (None, 2, 3, 3, 2, None)]
+        timings[f"tfl_ver_{tag}_without_ms"] = statistics.fmean(runs[::5])
+        timings[f"tfl_ver2_{tag}_ms"] = statistics.fmean(runs[1::3])
+        timings[f"tfl_ver3_{tag}_ms"] = statistics.fmean(runs[2:4])
+        log(f"phase 3 lookup at mask {d} with offsets, without / V=2 / V=3 "
+            "/ V=3 / V=2 / without versions: "
+            + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
+    timings["tfl_ver_floor_ms"] = graph_ms(ver_form(1.0, 3, P=1))
+    timings["tfl_ver_plain_ms"] = graph_ms(
+        lambda: tfl.time_flow_lookup_plain(vtabs[3], None, 5, sel, node,
+                                           dstv, 213, masks[1.0], phase_off,
+                                           vsels[3]))
+    del vtabs
     timings["tfl_new_plain_ms"] = graph_ms(lambda: tfl.time_flow_lookup_plain(
         table, None, 5, sel, node, dstv, 213, masks[1.0]))
     timings["adm_floor_ms"] = graph_ms(lambda: adm.admission_admit(
@@ -2107,6 +2563,33 @@ def main() -> int:
     log(f"phase 19 phased swaps (deployed, fast reroute, repair), {SLICES} "
         f"slices: {json.dumps(phased)}")
 
+    # -- 20. the traffic-aware reconfigure loop ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    reconf = check_reconfigure(dev)
+    log(f"phase 20 reconfigure loop, {RECONF_EPOCHS} epochs of {RECONF_E} "
+        f"slices: {json.dumps(reconf)}")
+    ep = reconf["epoch"]
+    log(f"phase 20 beside phases 4 and 17: slices/s "
+        + ", ".join(f"{k} {v['slices_per_s']:.2f}" for k, v in reconf.items()
+                    if k != "epoch")
+        + f" (phase 4: {runs['default']['slices_per_s']:.2f}, phase 17: "
+        f"{masked['slices_per_s']:.2f}); an epoch of the hotswap run "
+        f"{ep['wall_ms']:.1f} ms: measure + schedule {ep['measure_schedule_ms']:.1f}"
+        f", recompile {ep['recompile_ms']:.1f}, {RECONF_E} slices "
+        f"{ep['slices_ms']:.1f}; kernels launched a slice in epoch "
+        f"{RECONF_PROFILED_EPOCH} {ep['profiled_kernels_per_slice']:.2f} "
+        f"(phase 17: {masked['kernels_per_slice']:.2f}), device time "
+        f"{ep['profiled_device_ms_per_slice']:.4f} ms a slice; lookup with "
+        f"vsel {ep['lookup_us_per_call']:.3f} us a call on the device; peak "
+        f"device memory {reconf['b_hotswap']['peak_mib']:.1f} MiB (hotswap; "
+        f"{reconf['b_hotswap']['loop_peak_mib']:.1f} above what was held "
+        f"before), {reconf['b_2pc_degrade']['peak_mib']:.1f} MiB (2PC with "
+        f"degrade; {reconf['b_2pc_degrade']['loop_peak_mib']:.1f}); "
+        f"mixed-version epochs {reconf['b_hotswap']['mixed_epochs']} "
+        f"(hotswap), degraded epochs "
+        f"{reconf['b_2pc_degrade']['degraded_epochs']} (2PC)")
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -2130,6 +2613,15 @@ def main() -> int:
         nbytes = P_MAIN * (1 + 8) + n * 12 + \
             min(n, 2 * N_TORS * N_TORS) * 2 * K * 4
         return bound(nbytes, n * (6 + K + 13))
+
+    def versioned_bound(d):
+        # with offsets and versions: the [N] phase_off and [N] vsel read
+        # once, a node still reads one slice of one version of each table;
+        # a clamp and a multiply-add more a looked-up packet
+        n = int(d * P_MAIN)
+        nbytes = P_MAIN * (1 + 8) + n * 12 + 2 * N_TORS * 4 + \
+            min(n, 2 * N_TORS * N_TORS) * 2 * K * 4
+        return bound(nbytes, n * (6 + K + 19))
 
     def offsets_bound(d):
         # the same with per-node offsets: the [N] phase_off read once (a
@@ -2166,6 +2658,20 @@ def main() -> int:
                       for d, tag in ((1.0, "full"), (0.1, "10"),
                                      (0.01, "1"))},
              offsets_floor_ms=timings["tfl_new_off_floor_ms"],
+             versioned={tag: dict(v2_ms=timings[f"tfl_ver2_{tag}_ms"],
+                                  v3_ms=timings[f"tfl_ver3_{tag}_ms"],
+                                  ms_without=timings[
+                                      f"tfl_ver_{tag}_without_ms"],
+                                  mask_density=d, **versioned_bound(d))
+                        for d, tag in ((1.0, "full"), (0.1, "10"),
+                                       (0.01, "1"))},
+             versioned_floor_ms=timings["tfl_ver_floor_ms"],
+             versioned_plain_ms=timings["tfl_ver_plain_ms"],
+             reconfigure_path_launches={
+                 k: v["launches"]["tfl"] for k, v in reconf.items()
+                 if k != "epoch"},
+             reconfigure_path_us_per_call=reconf["epoch"][
+                 "lookup_us_per_call"],
              main_path=dict(mask_density=main_density,
                             device_us_per_call=tfl_main_us,
                             kernels_per_slice=kernels_per_slice)),
@@ -2181,6 +2687,9 @@ def main() -> int:
              service_path_launches=service["service_launches"]["adm"],
              windowed_path_launches=service["fabric_launches"]["adm"],
              phased_path_launches=phased["launches"]["adm"],
+             reconfigure_path_launches={
+                 k: v["launches"]["adm"] for k, v in reconf.items()
+                 if k != "epoch"},
              rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
                          **bound(adm_rx_bytes, adm_ops))),
     ]
@@ -2225,6 +2734,8 @@ def main() -> int:
                                    plain_ms=lm_t["decode_qwen_plain_ms"],
                                    library_ms=lm_t["decode_qwen_sdpa_ms"],
                                    **lm_bounds["decode_qwen"])
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+        "build included")
     log(smi)                                # card name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,32 @@
 """OpenOptics core in PyTorch: the port of ``repro.core``'s main path.
 
 Control plane (host numpy, copied from the reference): topology
-(schedules), routing (time-flow table compilation), traces (synthetic
+(schedules), routing (time-flow table compilation), timeflow (entry-level
+time-flow tables), traces (synthetic
 workloads), failures (fault traces and their masks, table repair, fast
 reroute), controlplane (clock skew, install delay and loss, controller
 stalls), guardband (the §7 minimum-slice derivation), toolkit (packet
 traces and table, telemetry and sharding checkers). Data plane (PyTorch on
 one device): fabric (calendar queues, congestion detection, push-back,
 offloading, failure and control masks, telemetry counters, one-shot and
-incremental runs, phased table swaps) and net (the user API, run or as a
-clocked service).
+incremental runs, phased table swaps, versioned tables), net (the user
+API, run or as a clocked service), and the traffic-aware reconfigure loop
+(reconfigure) with its device-side routing compiler (routing_jnp) and
+demand schedulers (topology_jnp).
 """
 from .topology import (Circuit, Schedule, connect, round_robin, uniform_mesh,
                        circuits_to_conn, conn_to_circuits, deploy_topo_check)
 from .routing import (CompiledRouting, direct, vlb, opera, ucmp, hoho, ecmp,
                       wcmp, ksp, neighbors, earliest_path, add_entry,
                       first_direct_offsets)
+from .timeflow import Entry, TimeFlowTable
 from .fabric import (FabricConfig, FabricState, FabricTables, Workload,
                      SimResult, simulate, simulate_incremental, init_state,
                      ingest, step_slices, finalize, tables_from_arrays,
                      workload_from_arrays)
 from .telemetry import TelemetryConfig, TelemetryCounters
 from .net import OpenOpticsNet, clos_routing
+from .reconfigure import ReconfigConfig, ReconfigResult, reconfigure
 from .failures import (FailureEvent, FailureTrace, FailureMasks,
                        compile_masks, random_trace, repair, surviving_conn,
                        backup_tables, backup_tables_dp, fast_reroute,
@@ -31,24 +36,26 @@ from .controlplane import (ControlEvent, ControlTrace, ControlMasks,
                            install_schedule)
 from .traces import synthesize, flow_fcts, TRACES
 from .guardband import GuardbandInputs, derive as derive_guardband
-from . import toolkit
+from . import routing_jnp, toolkit, topology_jnp
 
 __all__ = [
     "Circuit", "Schedule", "connect", "round_robin", "uniform_mesh",
     "circuits_to_conn", "conn_to_circuits", "deploy_topo_check",
     "CompiledRouting", "direct", "vlb", "opera", "ucmp", "hoho", "ecmp",
     "wcmp", "ksp", "neighbors", "earliest_path", "add_entry",
-    "first_direct_offsets",
+    "first_direct_offsets", "Entry", "TimeFlowTable",
     "FabricConfig", "FabricState", "FabricTables", "Workload", "SimResult",
     "simulate", "simulate_incremental", "init_state", "ingest",
     "step_slices", "finalize", "tables_from_arrays", "workload_from_arrays",
     "TelemetryConfig", "TelemetryCounters",
     "OpenOpticsNet", "clos_routing",
+    "ReconfigConfig", "ReconfigResult", "reconfigure",
     "FailureEvent", "FailureTrace", "FailureMasks", "compile_masks",
     "random_trace", "repair", "surviving_conn", "backup_tables",
     "backup_tables_dp", "fast_reroute", "simulate_phased",
     "ControlEvent", "ControlTrace", "ControlMasks", "compile_control",
     "random_control_trace", "install_schedule",
     "synthesize", "flow_fcts", "TRACES",
-    "GuardbandInputs", "derive_guardband", "toolkit",
+    "GuardbandInputs", "derive_guardband", "toolkit", "routing_jnp",
+    "topology_jnp",
 ]

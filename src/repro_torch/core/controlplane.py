@@ -22,9 +22,9 @@ masks per trace and seed).
      absorbed — exactly what the band is budgeted for;
    * ``ctrl_delay[S, N]`` / ``ctrl_ok[S, N]`` — slices of delay (and
      seeded survival) for a table-install message sent at slice ``s`` to
-     ToR ``n``. Read by the reference's versioned install machinery
-     (``repro.core.reconfigure``, not ported yet: ROADMAP Queue 1 item 6),
-     not by the fabric itself.
+     ToR ``n``. Read by the versioned installs of
+     :func:`repro_torch.core.reconfigure.reconfigure`, not by the fabric
+     itself.
 
 2. **Fabric threading** — :func:`repro_torch.core.fabric.simulate` accepts
    the masks via its ``control=`` argument; the step branches only on

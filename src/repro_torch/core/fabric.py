@@ -38,9 +38,12 @@ results field for field.
   A window's masks cover only that window (row 0 its first slice), and a
   step is built per window, since an ingest grows the packet population
   the step captures.
-* The reference's versioned tables (its reconfigure loop's installs), and
-  its sharded and batched entry points are not ported yet (ROADMAP Queue 1
-  items 6 and 9).
+* Versioned tables (the reconfigure loop's installs,
+  :mod:`.reconfigure`): a window may carry ``V`` table versions and a
+  per-slice, per-ToR version select; both lookup sites then read each
+  ToR's version through the lookup kernel's ``[N]`` ``vsel``. The
+  reference's sharded and batched entry points are not ported yet
+  (ROADMAP Queue 1 item 9).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -244,7 +247,7 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
 
 
 def _pad_k(a, K: int, fill: int):
-    """Pad the slot axis of ``[Tr, N, D, k]`` tables to K with ``fill``."""
+    """Pad the slot axis of ``[..., k]`` tables to K with ``fill``."""
     if a.shape[-1] == K:
         return a
     pad = a.new_full(a.shape[:-1] + (K - a.shape[-1],), fill)
@@ -257,11 +260,13 @@ def stack_tables(inj_next, inj_dep, tf_next, tf_dep):
     entry its next-hop row (``[..., 0, :]``) beside its departure row
     (``[..., 1, :]``). K is padded to the larger of the two with invalid
     slots (-1 / 0), which leaves the valid count, so the slot pick,
-    unchanged."""
+    unchanged. Versioned tables (``[V, Tr, N, D, K]`` each) give the
+    versioned table ``[2, V, Tr, N, D, 2, K]``, every version padded to
+    the common K."""
     K = max(inj_next.shape[-1], tf_next.shape[-1])
     nxt = torch.stack([_pad_k(inj_next, K, -1), _pad_k(tf_next, K, -1)])
     dep = torch.stack([_pad_k(inj_dep, K, 0), _pad_k(tf_dep, K, 0)])
-    return torch.stack([nxt, dep], dim=4).contiguous()
+    return torch.stack([nxt, dep], dim=-2).contiguous()
 
 
 def _spread_offsets(off, looked_up, pid):
@@ -302,7 +307,11 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     (``j["phase_off"]``, ``j["skew_miss"]``) and telemetry branches, each
     present only when its input is. The masks' row 0 is absolute slice
     ``j["mask_t0"]`` (0 when absent): a window's masks cover only that
-    window. The step captures the packet count, so it serves one window."""
+    window. With versioned tables (``j["tf_next_v"]`` and the other three,
+    ``[V, Tr, N, D, K]``) both lookup sites read, at each node, the
+    version ``j["vsel"][t - j["vsel_t0"]]`` selects for it: the version
+    select of *fabric* slice ``t``, not of the ToR's local slice. The step
+    captures the packet count, so it serves one window."""
     T, N, _ = j["conn"].shape
     P = j["src"].shape[0]
     dev = j["src"].device
@@ -311,7 +320,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     NKEY = N * (N + 1)
     T2 = 2 * T                       # calendar-queue ring: dep in (t, t + 2T)
     limit = min(cfg.slice_bytes, cfg.congestion_threshold)
-    Tr = j["tf_next"].shape[0]
+    has_vers = "tf_next_v" in j
+    Tr = j["tf_next_v"].shape[1] if has_vers else j["tf_next"].shape[0]
     has_fail = "link_cap" in j
     has_ctrl = "phase_off" in j
     has_tele = telemetry is not None
@@ -322,9 +332,11 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     caps_rows = _build_caps(j["conn"], cfg, N, j.get("link_cap"),
                             j.get("node_ok"), mt0 if has_fail else 0)
 
-    # packed (injection, transit) tables for the fused first-phase lookup
-    table = stack_tables(j["inj_next"], j["inj_dep"], j["tf_next"],
-                         j["tf_dep"])
+    # packed (injection, transit) tables for the fused first-phase lookup,
+    # with a version axis when the window carries versioned tables
+    sfx = "_v" if has_vers else ""
+    table = stack_tables(*(j[k + sfx] for k in ("inj_next", "inj_dep",
+                                                "tf_next", "tf_dep")))
 
     size, dst, src = j["size"], j["dst"], j["src"]
     flow, seq, is_eleph = j["flow"], j["seq"], j["is_eleph"]
@@ -401,6 +413,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         no_t = j["node_ok"][t - mt0] if has_fail else None
         po_t = j["phase_off"][t - mt0] if has_ctrl else None
         sm_t = j["skew_miss"][t - mt0] if has_ctrl else None
+        # each ToR's table version this slice (old, new or safe tables)
+        vs_t = j["vsel"][t - j["vsel_t0"]] if has_vers else None
         if has_tele:
             # per-slice counters, emitted with the stats at the end; each
             # has P spill slots past its N counters (count_)
@@ -424,7 +438,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         node = torch.where(ready, src, cl(s["loc"]))
         looked_up = ready | redo
         nxt_i, off_i = time_flow_lookup(table, None, t % Tr, sel, node, dst,
-                                        h, mask=looked_up, phase_off=po_t)
+                                        h, mask=looked_up, phase_off=po_t,
+                                        vsel=vs_t)
         off_i = _spread_offsets(off_i, looked_up, pid)
         nxt_r, off_r = nxt_i, off_i
         if cfg.flow_pausing:
@@ -541,7 +556,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             node_t = cl(s["loc"])
             nxt_t, off_t = time_flow_lookup(table, None, t % Tr, 1, node_t,
                                             dst, h, mask=in_transit,
-                                            phase_off=po_t)
+                                            phase_off=po_t, vsel=vs_t)
             off_t = _spread_offsets(off_t, in_transit, pid)
             s["nxt"] = torch.where(in_transit, nxt_t, s["nxt"])
             s["dep"] = torch.where(in_transit, t + off_t, s["dep"])
@@ -809,13 +824,44 @@ def ingest(fs: FabricState, wl: Workload) -> FabricState:
     return fs
 
 
+_VERSION_KEYS = ("tf_next_v", "tf_dep_v", "inj_next_v", "inj_dep_v")
+
+
+def _add_versions(j, versions: dict, num_slices: int) -> None:
+    """Check a window's versioned tables and version select and add them
+    to ``j`` (see :func:`step_slices`)."""
+    if set(versions) != set(_VERSION_KEYS) | {"vsel"}:
+        raise ValueError(f"versions must hold {_VERSION_KEYS} and 'vsel', "
+                         f"got {sorted(versions)}")
+    N = j["conn"].shape[1]
+    V, Tr = versions["tf_next_v"].shape[:2]
+    for k in _VERSION_KEYS:
+        x = versions[k]
+        if x.dim() != 5 or tuple(x.shape[:3]) != (V, Tr, N) \
+                or x.shape[3] != N or x.dtype != _I32:
+            raise ValueError(f"versions[{k!r}] must be int32 [V, Tr, N, N, "
+                             f"K] with V={V}, Tr={Tr}, N={N}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    vsel = versions["vsel"]
+    if vsel.dtype != _I32 or tuple(vsel.shape) != (num_slices, N):
+        raise ValueError(f"versions['vsel'] must be int32 [{num_slices}, "
+                         f"{N}], got {vsel.dtype} {tuple(vsel.shape)}")
+    j.update(versions)
+    j["vsel"] = vsel.contiguous()
+
+
 def step_slices(fs: FabricState, num_slices: int, failures=None,
-                control=None) -> FabricState:
+                control=None, versions: dict | None = None) -> FabricState:
     """Advance the run ``num_slices`` slices from its clock.
 
     ``failures`` / ``control`` cover this window only (``[num_slices,
     ...]`` rows, row 0 the clock's slice); each adds its branches to this
-    window's step only when given, as in :func:`simulate`. The state
+    window's step only when given, as in :func:`simulate`. ``versions``
+    gives the window versioned tables in place of the deployed ones (the
+    reconfigure loop's installs): ``tf_next_v``, ``tf_dep_v``,
+    ``inj_next_v``, ``inj_dep_v`` (``[V, Tr, N, N, K]`` int32 tensors on
+    the run's device) and ``vsel`` (``[num_slices, N]`` int32: the version
+    each ToR reads in each slice of the window). The state
     carries on from the last window, so a run split into any windows
     equals the one-shot run. The step is built anew for each window: the
     packet count it captures grows with :func:`ingest`."""
@@ -827,6 +873,9 @@ def step_slices(fs: FabricState, num_slices: int, failures=None,
     _add_masks(jw, failures, control, n)
     if failures is not None or control is not None:
         jw["mask_t0"] = t0
+    if versions is not None:
+        _add_versions(jw, versions, n)
+        jw["vsel_t0"] = t0
     step = _make_step(jw, fs.cfg, fs.per_packet_mp, fs.telemetry)
     ys = [step(fs.state, t) for t in range(t0, t0 + n)]
     fs.chunks.append(_window_out(fs.state, ys, jw, fs.telemetry, n, t0))

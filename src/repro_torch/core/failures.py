@@ -19,8 +19,9 @@ the failure-free one. :func:`surviving_conn` masks failed circuits out of
 a schedule, on numpy arrays or torch tensors.
 
 **Repair** (:func:`repair`) recompiles any scheme's tables over the
-surviving adjacency. **Fast reroute** (:func:`fast_reroute`) patches
-compiled tables around a failure set without a recompile, from backup
+surviving adjacency, with the host compiler or, for the TO schemes, the
+device compiler (``impl="jnp"``). **Fast reroute** (:func:`fast_reroute`)
+patches compiled tables around a failure set without a recompile, from backup
 candidates computed once per deploy (:func:`backup_tables`, or the
 destination-aware :func:`backup_tables_dp`). These are host numpy, a copy
 of the reference's, and give its arrays exactly. :func:`simulate_phased`
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from . import fabric as fabric_mod
+from . import routing_jnp
 from .routing import (INF, CompiledRouting, _time_dp_all, direct, ecmp,
                       first_direct_offsets, hoho, ksp, opera, ucmp, vlb,
                       wcmp)
@@ -313,7 +315,7 @@ def surviving_conn(conn: np.ndarray, failed: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def repair(sched: Schedule, scheme: str, failed: np.ndarray,
-           impl: str = "numpy", **kw) -> CompiledRouting:
+           impl: str = "numpy", device=None, **kw) -> CompiledRouting:
     """Recompile ``scheme``'s time-flow tables over the surviving adjacency
     — the scheme-agnostic repair primitive. ``failed[n, d]`` marks dead
     circuits (e.g. :meth:`FailureMasks.failed_links`); ``kw`` is forwarded
@@ -322,22 +324,25 @@ def repair(sched: Schedule, scheme: str, failed: np.ndarray,
     :func:`repro_torch.core.toolkit.check_tables` proves with its
     ``link_fail=`` argument.
 
-    ``impl="numpy"`` runs the host compiler (every TO and TA scheme). The
-    reference's device compiler (``impl="jnp"``) is not ported yet: it
-    waits for ROADMAP Queue 1 item 6.
+    ``impl="numpy"`` runs the host compiler (every TO and TA scheme);
+    ``impl="jnp"`` the device compiler of :mod:`.routing_jnp` (the TO
+    schemes) on ``device``, CUDA unless the caller names another,
+    bit-identical to the host path.
     """
     if scheme not in REPAIR_SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}: expected one of "
                          f"{tuple(REPAIR_SCHEMES)}")
-    if impl == "jnp":
-        raise NotImplementedError(
-            "repair(impl='jnp') (the device-resident compiler) is not "
-            "ported to repro_torch yet: ROADMAP Queue 1 item 6")
-    if impl != "numpy":
-        raise ValueError(f"unknown impl {impl!r}: expected 'numpy' or 'jnp'")
     alive_sched = Schedule(np.asarray(surviving_conn(sched.conn, failed)),
                            slice_us=sched.slice_us, reconf_us=sched.reconf_us)
-    return REPAIR_SCHEMES[scheme](alive_sched, **kw)
+    if impl == "numpy":
+        return REPAIR_SCHEMES[scheme](alive_sched, **kw)
+    if impl != "jnp":
+        raise ValueError(f"unknown impl {impl!r}: expected 'numpy' or 'jnp'")
+    if scheme not in routing_jnp.SCHEMES:
+        raise ValueError(f"impl='jnp' supports the TO schemes "
+                         f"{routing_jnp.SCHEMES}; {scheme!r} is host-only")
+    return REPAIR_SCHEMES[scheme](alive_sched, compile_impl="jnp",
+                                  device=device, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -38,11 +38,17 @@ The TO compilers never iterate per (slice, node, destination) in Python:
    adjacency replace the per-pair networkx searches (this module no longer
    imports networkx at all).
 
-Host compilation only
----------------------
-This is the PyTorch port's copy of ``repro.core.routing``. Only the numpy
-path is carried over: the tables stay host numpy arrays, as in the
-reference, and ``compile_impl="jnp"`` raises ``NotImplementedError``.
+Host vs. device compilation (``compile_impl``)
+----------------------------------------------
+This is the PyTorch port's copy of ``repro.core.routing``. Every TO
+compiler takes ``compile_impl="numpy"`` (default; the host compiler of
+this module) or ``"jnp"``, the device compiler of
+:mod:`repro_torch.core.routing_jnp` (the port keeps the reference's name),
+run on ``device`` (CUDA unless the caller names another; without CUDA,
+``device=None`` raises) and bit-identical to the host path. Either way the
+tables come back as host numpy arrays, as in the reference;
+:mod:`repro_torch.core.reconfigure` calls the device compiler directly and
+keeps its tables on the card.
 
 Parity with ``repro.core.routing``, array for array, is held by
 ``tests/test_torch_host.py``.
@@ -52,7 +58,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from . import routing_jnp
 from .topology import Schedule
 
 __all__ = [
@@ -366,17 +374,24 @@ def _dp_tables(sched: Schedule, max_hop: int, kpaths: int):
 # TO routing algorithms
 # ---------------------------------------------------------------------------
 
-def _check_compile_impl(compile_impl: str) -> None:
-    """Validate the knob. The device compiler of the reference
-    (``compile_impl="jnp"``, ``repro.core.routing_jnp``) is not ported yet:
-    it waits for ROADMAP Queue 1 item 6."""
-    if compile_impl == "jnp":
-        raise NotImplementedError(
-            "compile_impl='jnp' (the device-resident compiler) is not ported "
-            "to repro_torch yet: ROADMAP Queue 1 item 6")
-    if compile_impl != "numpy":
+def _jnp_tables(sched: Schedule, scheme: str, device=None, max_hop: int = 4,
+                kpaths: int = 4):
+    """Compile ``scheme`` with the device compiler on ``device`` (CUDA by
+    default) and bring the tables back as host numpy (the
+    ``compile_impl="jnp"`` path of the scheme functions)."""
+    from .fabric import resolve_device       # fabric imports this module
+    conn = torch.as_tensor(np.asarray(sched.conn, np.int32),
+                           device=resolve_device(device))
+    return tuple(t.cpu().numpy() for t in routing_jnp.compile_tables(
+        conn, scheme, max_hop=max_hop, kpaths=kpaths))
+
+
+def _check_compile_impl(compile_impl: str) -> bool:
+    """Validate the knob; True when the device compiler was asked for."""
+    if compile_impl not in ("numpy", "jnp"):
         raise ValueError(f"unknown compile_impl {compile_impl!r}: expected "
                          "'numpy' or 'jnp'")
+    return compile_impl == "jnp"
 
 
 def _has_circuit_grid(sched: Schedule) -> np.ndarray:
@@ -402,19 +417,22 @@ def first_direct_offsets(sched: Schedule) -> np.ndarray:
     return np.where(nxt[:T] >= NEVER, -1, off).astype(np.int32)
 
 
-def direct(sched: Schedule, compile_impl: str = "numpy", **_) -> CompiledRouting:
+def direct(sched: Schedule, compile_impl: str = "numpy", device=None,
+           **_) -> CompiledRouting:
     """Direct-circuit routing: hold every packet at its source until the
     one-hop circuit to its destination appears (paper Fig. 3a).
 
     Args:
         sched: the optical schedule to compile against.
-        compile_impl: "numpy", the host compiler ("jnp" is not
-            ported yet and raises).
+        compile_impl: "numpy" (the host compiler) or "jnp" (the device
+            compiler, bit-identical; :mod:`.routing_jnp`).
+        device: where ``"jnp"`` compiles (CUDA by default).
 
     Returns single-slot (k = 1) tables ``[T, N, D, 1]``; injection and
     transit tables are identical.
     """
-    _check_compile_impl(compile_impl)
+    if _check_compile_impl(compile_impl):
+        return CompiledRouting(*_jnp_tables(sched, "direct", device))
     T, N, U = sched.conn.shape
     fd = first_direct_offsets(sched)                     # [T, N, N]
     found = fd >= 0
@@ -425,7 +443,7 @@ def direct(sched: Schedule, compile_impl: str = "numpy", **_) -> CompiledRouting
 
 
 def vlb(sched: Schedule, kpaths: int = 4, compile_impl: str = "numpy",
-        **_) -> CompiledRouting:
+        device=None, **_) -> CompiledRouting:
     """Valiant load balancing (RotorNet): injection sprays packets over the
     currently connected neighbours (packet-level multipath); transit nodes run
     direct-circuit routing, holding the packet for the rotor circuit to the
@@ -434,13 +452,17 @@ def vlb(sched: Schedule, kpaths: int = 4, compile_impl: str = "numpy",
     Args:
         sched: the optical schedule to compile against.
         kpaths: spray width — injection slots per (slice, src, dst).
-        compile_impl: "numpy", the host compiler ("jnp" is not
-            ported yet and raises).
+        compile_impl: "numpy" (the host compiler) or "jnp" (the device
+            compiler, bit-identical; :mod:`.routing_jnp`).
+        device: where ``"jnp"`` compiles (CUDA by default).
 
     Returns ``inj_*`` spray tables ``[T, N, D, kpaths]`` over k = 1 transit
     direct-circuit tables, with per-packet multipath hashing.
     """
-    _check_compile_impl(compile_impl)
+    if _check_compile_impl(compile_impl):
+        return CompiledRouting(*_jnp_tables(sched, "vlb", device,
+                                            kpaths=kpaths),
+                               multipath="packet")
     base = direct(sched)
     T, N, U = sched.conn.shape
     diag = np.arange(N)
@@ -466,7 +488,7 @@ def vlb(sched: Schedule, kpaths: int = 4, compile_impl: str = "numpy",
 
 
 def opera(sched: Schedule, max_hop: int = 4, compile_impl: str = "numpy",
-          **_) -> CompiledRouting:
+          device=None, **_) -> CompiledRouting:
     """Opera: within each slice the (expander) topology is treated as static
     and packets ride multi-hop shortest paths that complete in-slice
     (departure offset 0 on every hop).
@@ -475,12 +497,15 @@ def opera(sched: Schedule, max_hop: int = 4, compile_impl: str = "numpy",
         sched: the optical schedule to compile against.
         max_hop: in-slice path-length bound for the batched BFS; pairs
             farther apart fall back to waiting for a direct circuit.
-        compile_impl: "numpy", the host compiler ("jnp" is not
-            ported yet and raises).
+        compile_impl: "numpy" (the host compiler) or "jnp" (the device
+            compiler, bit-identical; :mod:`.routing_jnp`).
+        device: where ``"jnp"`` compiles (CUDA by default).
 
     Returns single-slot (k = 1) tables ``[T, N, D, 1]``.
     """
-    _check_compile_impl(compile_impl)
+    if _check_compile_impl(compile_impl):
+        return CompiledRouting(*_jnp_tables(sched, "opera", device,
+                                            max_hop=max_hop))
     T, N, U = sched.conn.shape
     tf_next = np.full((T, N, N, 1), -1, dtype=np.int32)
     tf_dep = np.zeros((T, N, N, 1), dtype=np.int32)
@@ -513,7 +538,7 @@ def opera(sched: Schedule, max_hop: int = 4, compile_impl: str = "numpy",
 
 
 def ucmp(sched: Schedule, max_hop: int = 4, kpaths: int = 4,
-         compile_impl: str = "numpy", **_) -> CompiledRouting:
+         compile_impl: str = "numpy", device=None, **_) -> CompiledRouting:
     """UCMP: uniform-cost multi-path across time — all departure options whose
     arrival slice equals the earliest achievable are load-balanced per packet.
 
@@ -522,32 +547,39 @@ def ucmp(sched: Schedule, max_hop: int = 4, kpaths: int = 4,
         max_hop: sizes the DP's lexicographic metric base (hop counts stay
             below it for any sane schedule; the fabric enforces its own max).
         kpaths: equal-cost slots kept per (slice, node, dst).
-        compile_impl: "numpy", the host compiler ("jnp" is not
-            ported yet and raises).
+        compile_impl: "numpy" (the host compiler) or "jnp" (the device
+            compiler, bit-identical; :mod:`.routing_jnp`).
+        device: where ``"jnp"`` compiles (CUDA by default).
 
     Returns ``[T, N, D, kpaths]`` tables with per-packet multipath hashing;
     injection and transit tables are identical.
     """
-    _check_compile_impl(compile_impl)
+    if _check_compile_impl(compile_impl):
+        return CompiledRouting(*_jnp_tables(sched, "ucmp", device,
+                                            max_hop=max_hop, kpaths=kpaths),
+                               multipath="packet")
     tf_next, tf_dep = _dp_tables(sched, max_hop, kpaths)
     return CompiledRouting(tf_next, tf_dep, tf_next.copy(), tf_dep.copy(),
                            multipath="packet")
 
 
 def hoho(sched: Schedule, max_hop: int = 4, compile_impl: str = "numpy",
-         **_) -> CompiledRouting:
+         device=None, **_) -> CompiledRouting:
     """Hop-On Hop-Off: the single earliest-arrival (then fewest-hop) path —
     slot 0 of the UCMP table.
 
     Args:
         sched: the optical schedule to compile against.
         max_hop: sizes the DP's lexicographic metric base.
-        compile_impl: "numpy", the host compiler ("jnp" is not
-            ported yet and raises).
+        compile_impl: "numpy" (the host compiler) or "jnp" (the device
+            compiler, bit-identical; :mod:`.routing_jnp`).
+        device: where ``"jnp"`` compiles (CUDA by default).
 
     Returns single-slot (k = 1) tables ``[T, N, D, 1]``.
     """
-    _check_compile_impl(compile_impl)
+    if _check_compile_impl(compile_impl):
+        return CompiledRouting(*_jnp_tables(sched, "hoho", device,
+                                            max_hop=max_hop))
     tf_next, tf_dep = _dp_tables(sched, max_hop, kpaths=1)
     return CompiledRouting(tf_next, tf_dep, tf_next.copy(), tf_dep.copy())
 

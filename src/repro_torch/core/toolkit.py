@@ -150,7 +150,7 @@ def check_tables(sched: Schedule, routing: CompiledRouting,
     ``upgraded[node]`` True answer lookups from ``routing`` (the new
     tables), the rest from ``old_routing`` — and check that the blend is
     still sound. This is the soundness statement behind the reference's
-    reconfigure loop's two-phase install (not ported yet): any
+    reconfigure loop's two-phase install (:mod:`.reconfigure`): any
     activation order must be safe, not just the all-at-once swap. Static
     invariants are skipped (each version passes them against its own
     schedule; the mixed hazard is *walks* crossing version boundaries),

@@ -55,6 +55,14 @@
 //   behind, so the modulo is a floor modulo (JAX's %), not C's truncating
 //   one; the hash keeps the global slice t as its salt, as the
 //   reference's does.
+// * A ToR's table version. The reconfigure loop's versioned installs
+//   give the table a version axis, [2, V, Tr, N, D, 2, K], and pass an
+//   optional [N] vsel: the version (old, new or safe tables) that each
+//   node reads in this slice. A packet at node n reads version vsel[n],
+//   one more 4-byte load after the node's, beside its offset's; the
+//   version is clamped into [0, V), as JAX clamps a gather. Without vsel
+//   every node reads version 0, so V = 1 is the unversioned table, the
+//   same route and the same bits.
 //
 // One thread handles one packet: four packets a thread, with 16-byte
 // loads of the int32 streams, 4 bytes of mask and 16-byte stores, lost to
@@ -75,8 +83,9 @@ struct Lookup {
   const int32_t* rows_next;  // next-hop slots of entry 0
   const int32_t* rows_dep;   // departure slots of entry 0
   int64_t stride;            // int32 from one entry's rows to the next's
-  int32_t Tr, N, D, K, tm;
+  int32_t V, Tr, N, D, K, tm;
   const int32_t* phase_off;  // [N] slice offset of each node, or null
+  const int32_t* vsel;       // [N] table version of each node, or null: 0
   const int32_t* sel;        // [P] selectors, or null: sel_const for all
   int32_t sel_const;
   const int32_t* node;
@@ -95,8 +104,9 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// The first int32 of entry (sel, slice, node, dst)'s rows, inputs clamped;
-// the slice is tm, or node n's local slice (tm + phase_off[n]) mod Tr.
+// The first int32 of entry (sel, version, slice, node, dst)'s rows, inputs
+// clamped; the version is 0 or node n's vsel[n], the slice tm or node n's
+// local slice (tm + phase_off[n]) mod Tr.
 __device__ __forceinline__ int64_t entry(const Lookup& a, int32_t s,
                                          int32_t n, int32_t d) {
   s = min(max(s, 0), 1);
@@ -107,8 +117,10 @@ __device__ __forceinline__ int64_t entry(const Lookup& a, int32_t s,
     const int64_t r = (tm + __ldg(a.phase_off + n)) % a.Tr;  // in (-Tr, Tr)
     tm = r < 0 ? r + a.Tr : r;                               // floor modulo
   }
-  return (((static_cast<int64_t>(s) * a.Tr + tm) * a.N + n) * a.D + d) *
-         a.stride;
+  int64_t v = 0;
+  if (a.vsel) v = min(max(__ldg(a.vsel + n), 0), a.V - 1);
+  return ((((static_cast<int64_t>(s) * a.V + v) * a.Tr + tm) * a.N + n) *
+              a.D + d) * a.stride;
 }
 
 // Both rows of an entry into registers, V int32 a load, every load issued
@@ -206,20 +218,23 @@ bool aligned(const void* p, int bytes) {
 // vec: int32 per row load (4, 2 or 1), as vector_width chose it. Refuses
 // a vec that K, the stride or the rows' alignment does not allow.
 extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
-                          int64_t stride, int Tr, int N, int D, int K, int tm,
-                          const void* phase_off, const void* sel, int sel_const, const void* node,
+                          int64_t stride, int V, int Tr, int N, int D, int K,
+                          int tm, const void* phase_off, const void* vsel,
+                          const void* sel, int sel_const, const void* node,
                           const void* dst, const void* hashv, unsigned t,
                           const void* mask, void* out_next, void* out_dep,
                           int64_t P, int vec, void* stream) {
   if (P <= 0) return 0;
-  const bool rows_ok = (vec == 1 || vec == 2 || vec == 4) && K % vec == 0 &&
+  const bool rows_ok = V >= 1 && (vec == 1 || vec == 2 || vec == 4) &&
+                       K % vec == 0 &&
                        stride % vec == 0 && aligned(rows_next, 4 * vec) &&
                        aligned(rows_dep, 4 * vec);
   if (!rows_ok) return static_cast<int>(cudaErrorInvalidValue);
   const Lookup a{static_cast<const int32_t*>(rows_next),
                  static_cast<const int32_t*>(rows_dep),
-                 stride, Tr, N, D, K, tm,
+                 stride, V, Tr, N, D, K, tm,
                  static_cast<const int32_t*>(phase_off),
+                 static_cast<const int32_t*>(vsel),
                  static_cast<const int32_t*>(sel), sel_const,
                  static_cast<const int32_t*>(node),
                  static_cast<const int32_t*>(dst),

@@ -15,7 +15,10 @@ selector, so the fabric's fused injection / re-lookup site is one launch.
 The tables come either as the packed ``[2, Tr, N, D, 2, K]`` table that
 ``core.fabric.stack_tables`` builds, where an entry's next-hop and
 departure rows are adjacent (32 bytes at K = 4, one load), or as the two
-``[2, Tr, N, D, K]`` stacks of the TPU's form. Three inputs are optional:
+``[2, Tr, N, D, K]`` stacks of the TPU's form; either may carry a version
+axis after the selector (``[2, V, Tr, N, D, 2, K]``, ``[2, V, Tr, N, D,
+K]``: the reconfigure loop's old, new and safe tables). Four inputs are
+optional:
 
 * ``mask``: only the packets in it are looked up; the others read nothing
   from the table and get (-1, 0), the pair of an empty slot.
@@ -28,9 +31,13 @@ departure rows are adjacent (32 bytes at K = 4, one load), or as the two
   modulo (negative offsets are a clock behind), where ``n`` is its node
   clamped into the table: the reference's ``tl = t + po_t[node]``. The
   hash keeps ``t``.
+* ``vsel``: an ``[N]`` int32 table version per node (the version each
+  ToR's install state selects in the slice simulated). A packet at node
+  ``n`` reads version ``vsel[n]``; without it every node reads version 0,
+  so a table of one version is the unversioned table.
 
-Out-of-range selectors, nodes and destinations are clamped into the table,
-as JAX clamps a gather.
+Out-of-range selectors, versions, nodes and destinations are clamped into
+the table, as JAX clamps a gather.
 
 :func:`time_flow_lookup` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a
@@ -55,11 +62,11 @@ launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # rows_next, rows_dep, stride, Tr, N, D, K, tm, phase_off (nullable),
-    # sel (nullable), sel_const, node, dst, hash (nullable), t, mask
-    # (nullable), out_next, out_dep, P, vec, stream
-    "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
-                    ctypes.c_uint, _P, _P, _P, _L, _I, _P],
+    # rows_next, rows_dep, stride, V, Tr, N, D, K, tm, phase_off
+    # (nullable), vsel (nullable), sel (nullable), sel_const, node, dst,
+    # hash (nullable), t, mask (nullable), out_next, out_dep, P, vec, stream
+    "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+                    _P, _P, ctypes.c_uint, _P, _P, _P, _L, _I, _P],
                    ctypes.c_int),
 }
 
@@ -120,12 +127,20 @@ def _rows(tbl_next, tbl_dep):
     return tbl_next.reshape(-1, K), tbl_dep.reshape(-1, K)
 
 
+def table_dims(tbl_next, tbl_dep):
+    """``(V, Tr, N, D, K)`` of the packed table (``tbl_dep`` None) or of
+    the two stacks, with or without the version axis (V = 1 without)."""
+    lead = tbl_next.shape[:-2] if tbl_dep is None else tbl_next.shape[:-1]
+    V = lead[1] if len(lead) == 5 else 1
+    return (V, *lead[-3:], tbl_next.shape[-1])
+
+
 def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
-                           hashv, mask=None, phase_off=None):
+                           hashv, mask=None, phase_off=None, vsel=None):
     """The plain PyTorch version: gather + :func:`select_slot`, then
     ``where(mask, lookup, (-1, 0))``. Same arguments as
     :func:`time_flow_lookup`; runs on any device."""
-    Tr, N, D = tbl_next.shape[1:4]
+    V, Tr, N, D, _ = table_dims(tbl_next, tbl_dep)
     rows_n, rows_d = _rows(tbl_next, tbl_dep)
     if isinstance(sel, torch.Tensor):
         s = sel.to(torch.int64).clamp(0, 1)
@@ -140,6 +155,10 @@ def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
     if phase_off is not None:
         # the node's local slice; torch.remainder is a floor modulo
         tm = torch.remainder(tm + phase_off.to(torch.int64)[n], Tr)
+    if vsel is not None:
+        s = s * V + vsel.to(torch.int64)[n].clamp(0, V - 1)
+    elif V > 1:
+        s = s * V                       # every node reads version 0
     row = ((s * Tr + tm) * N + n) * D + d
     nxt, off = select_slot(rows_n[row], rows_d[row], hashv)
     if mask is not None:
@@ -175,24 +194,24 @@ def _require_cuda(tensors):
 
 
 def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
-           phase_off=None):
+           phase_off=None, vsel=None):
     if tbl_dep is None:
-        if tbl_next.dim() != 6 or tbl_next.shape[0] != 2 \
-                or tbl_next.shape[4] != 2:
+        if tbl_next.dim() not in (6, 7) or tbl_next.shape[0] != 2 \
+                or tbl_next.shape[-2] != 2:
             raise ValueError("time_flow_lookup: a packed table must be "
-                             "[2, Tr, N, D, 2, K], got "
-                             f"{tuple(tbl_next.shape)}")
+                             "[2, Tr, N, D, 2, K] or [2, V, Tr, N, D, 2, K],"
+                             f" got {tuple(tbl_next.shape)}")
         tables = [tbl_next]
     else:
-        if tbl_next.dim() != 5 or tbl_next.shape[0] != 2 \
+        if tbl_next.dim() not in (5, 6) or tbl_next.shape[0] != 2 \
                 or tbl_dep.shape != tbl_next.shape:
             raise ValueError("time_flow_lookup: tables must be two equal "
-                             "[2, Tr, N, D, K] stacks, got "
-                             f"{tuple(tbl_next.shape)} / "
+                             "[2, Tr, N, D, K] or [2, V, Tr, N, D, K] "
+                             f"stacks, got {tuple(tbl_next.shape)} / "
                              f"{tuple(tbl_dep.shape)}")
         tables = [tbl_next, tbl_dep]
-    Tr, N, D, K = *tbl_next.shape[1:4], tbl_next.shape[-1]
-    if min(Tr, N, D, K) < 1:
+    V, Tr, N, D, K = table_dims(tbl_next, tbl_dep)
+    if min(V, Tr, N, D, K) < 1:
         raise ValueError(f"time_flow_lookup: empty tables {tuple(tbl_next.shape)}")
     if not 0 <= tm < Tr:
         raise ValueError(f"time_flow_lookup: slice {tm} outside [0, {Tr})")
@@ -212,39 +231,43 @@ def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
             raise ValueError("time_flow_lookup: node, dst, hash, sel and "
                              "mask must be [P] vectors, got "
                              f"{tuple(x.shape)} for P={P}")
-    if phase_off is not None and (
-            phase_off.dtype != torch.int32 or not phase_off.is_contiguous()
-            or phase_off.shape != (N,)):
-        raise ValueError("time_flow_lookup: phase_off must be a contiguous "
-                         f"int32 [N] vector for N={N}, got "
-                         f"{phase_off.dtype} {tuple(phase_off.shape)}")
+    for name, x in (("phase_off", phase_off), ("vsel", vsel)):
+        if x is not None and (x.dtype != torch.int32 or not x.is_contiguous()
+                              or x.shape != (N,)):
+            raise ValueError(f"time_flow_lookup: {name} must be a contiguous "
+                             f"int32 [N] vector for N={N}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
 
 
 def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
-                     mask=None, phase_off=None):
+                     mask=None, phase_off=None, vsel=None):
     """Per-packet time-flow table lookup.
 
     tbl_next / tbl_dep: the packed ``[2, Tr, N, D, 2, K]`` int32 table and
     ``None``, or two ``[2, Tr, N, D, K]`` int32 stacks (selector 0 is the
-    injection table, 1 the transit table; invalid slots -1 / 0);
+    injection table, 1 the transit table; invalid slots -1 / 0), either
+    with a version axis after the selector (``[2, V, ...]``);
     tm: the slice, ``0 <= tm < Tr``; sel: ``[P]`` int32 selectors or one
     int for every packet; node / dst: ``[P]`` int32; hashv: ``[P]`` int32
     carrying the 32-bit hash pattern, or an int ``t`` for the per-packet
     multipath hash of slice ``t``; mask: ``None`` or a ``[P]`` bool, the
     packets to look up; phase_off: ``None`` or an ``[N]`` int32 slice
     offset per node, so that a packet at node ``n`` reads slice
-    ``(tm + phase_off[n]) mod Tr``. Returns ``(next_hop, dep_offset)``,
+    ``(tm + phase_off[n]) mod Tr``; vsel: ``None`` or an ``[N]`` int32
+    table version per node, so that a packet at node ``n`` reads version
+    ``vsel[n]`` (``None``: version 0). Returns ``(next_hop, dep_offset)``,
     two ``[P]`` int32 tensors, (-1, 0) outside the mask.
     """
     global launches
     if node.device.type == "cpu":
         return time_flow_lookup_plain(tbl_next, tbl_dep, tm, sel, node, dst,
-                                      hashv, mask, phase_off)
+                                      hashv, mask, phase_off, vsel)
     _require_cuda([x for x in (tbl_next, tbl_dep, sel, node, dst, hashv,
-                               mask, phase_off)
+                               mask, phase_off, vsel)
                    if isinstance(x, torch.Tensor)])
-    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask, phase_off)
-    Tr, N, D, K = *tbl_next.shape[1:4], tbl_next.shape[-1]
+    _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask, phase_off,
+           vsel)
+    V, Tr, N, D, K = table_dims(tbl_next, tbl_dep)
     P = node.shape[0]
     out_next = torch.empty(P, dtype=torch.int32, device=node.device)
     out_dep = torch.empty(P, dtype=torch.int32, device=node.device)
@@ -259,8 +282,8 @@ def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
     ptr = lambda x: x.data_ptr() if isinstance(x, torch.Tensor) else None
     _build.launch(
         lib.tfl_launch, "time_flow_lookup",
-        rows_next, rows_dep, stride, Tr, N, D, K, tm, ptr(phase_off),
-        ptr(sel), 0 if isinstance(sel, torch.Tensor) else int(sel),
+        rows_next, rows_dep, stride, V, Tr, N, D, K, tm, ptr(phase_off),
+        ptr(vsel), ptr(sel), 0 if isinstance(sel, torch.Tensor) else int(sel),
         node.data_ptr(), dst.data_ptr(), ptr(hashv),
         0 if isinstance(hashv, torch.Tensor) else int(hashv) & MASK32,
         ptr(mask), out_next.data_ptr(), out_dep.data_ptr(), P,

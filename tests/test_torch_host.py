@@ -9,7 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 import repro.core as R  # noqa: E402
 import repro_torch.core as Q  # noqa: E402
@@ -188,11 +188,21 @@ def test_routing_helpers_equal():
     assert a.is_flow_table() == b.is_flow_table()
 
 
-def test_compile_impl_jnp_not_ported():
-    qs = Q.round_robin(6, 1)
+def test_compile_impl_jnp_not_ported(monkeypatch):
+    """The name is older than the port of ``compile_impl="jnp"``: the
+    device compiler now runs (on the device the caller names) and gives
+    the reference's ``compile_impl="jnp"`` tables; without a card,
+    ``device=None`` raises rather than running on the CPU."""
+    qs, rs = Q.round_robin(6, 1), R.round_robin(6, 1)
     for scheme in ("direct", "vlb", "opera", "ucmp", "hoho"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(Q, scheme)(qs, compile_impl="jnp")
+        got = getattr(Q, scheme)(qs, compile_impl="jnp", device="cpu")
+        want = getattr(R, scheme)(rs, compile_impl="jnp")
+        for f in ("tf_next", "tf_dep", "inj_next", "inj_dep"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert got.multipath == want.multipath
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Q.hoho(qs, compile_impl="jnp")
     with pytest.raises(ValueError, match="compile_impl"):
         Q.vlb(qs, compile_impl="cuda")
 

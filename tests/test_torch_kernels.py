@@ -1,6 +1,6 @@
 """The port's kernels on the CPU: the plain versions of ``time_flow_lookup``
-(the TPU's form, and the packed table, the mask and the in-kernel hash of
-the port's) and ``admission_admit`` against the Pallas kernels (interpret
+(the TPU's form, and the packed table, the mask, the in-kernel hash and the
+version axis of the port's) and ``admission_admit`` against the Pallas kernels (interpret
 mode) and the ``repro.kernels.ref`` oracles, the lookup kernel's choice of
 row loads, a plain-torch emulation of the CUDA
 admission kernel's three passes (tiles, the scan across them, the walk of
@@ -273,6 +273,98 @@ def test_lookup_validates_packed_table_and_mask():
     for args in bad:
         with pytest.raises(ValueError):
             Q_tfl._check(*args)
+
+
+# ---------------------------------------------------------------------------
+# time_flow_lookup: the version axis (the reconfigure loop's installs)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("offsets", [False, True], ids=["slice", "offsets"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "stacks"])
+@pytest.mark.parametrize("V", [1, 2, 3])
+def test_lookup_versioned_matches_gather(V, packed, offsets):
+    """With a version axis and a per-node ``vsel`` (some entries outside
+    [0, V), which clamp), the lookup equals a direct gather of entry
+    ``[sel, vsel[n], tm', n, d]`` (``tm'`` the node's local slice) and the
+    reference's oracle on that version's slice, packet by packet."""
+    rng = np.random.default_rng(10 * V + 2 * packed + offsets)
+    Tr, n, k, P = 3, 9, 4, 900
+    tn, td = _random_tables(rng, (2, V, Tr), n, k)
+    node = rng.integers(0, n, P).astype(np.int32)
+    dst = rng.integers(0, n, P).astype(np.int32)
+    sel = rng.integers(0, 2, P).astype(np.int32)
+    h = rng.integers(0, 2 ** 32, P, dtype=np.uint64).astype(np.uint32)
+    vsel = rng.integers(-1, V + 1, n).astype(np.int32)
+    po = rng.integers(-2 * Tr, 2 * Tr + 1, n).astype(np.int32) if offsets \
+        else np.zeros(n, np.int32)
+    tm = int(rng.integers(0, Tr))
+    tables = ((torch.stack([_t32(tn), _t32(td)], dim=-2).contiguous(), None)
+              if packed else (_t32(tn), _t32(td)))
+    qn, qd = Q_tfl.time_flow_lookup(
+        *tables, tm, _t32(sel), _t32(node), _t32(dst), _bits(h),
+        phase_off=_t32(po) if offsets else None, vsel=_t32(vsel))
+    v = np.clip(vsel[node], 0, V - 1)
+    tl = (tm + po[node]) % Tr
+    rows_n, rows_d = tn[sel, v, tl, node, dst], td[sel, v, tl, node, dst]
+    nvalid = np.maximum((rows_n >= 0).sum(-1), 1)
+    slot = h.astype(np.int64) % nvalid
+    _assert_equal(qn, rows_n[np.arange(P), slot])
+    _assert_equal(qd, rows_d[np.arange(P), slot])
+    # the oracle on one [2 V Tr n, D, K] table whose rows are the entries
+    # (sel, version, slice, node)
+    row = ((sel * V + v) * Tr + tl) * n + node
+    rn, rd = R_ops.time_flow_lookup(
+        *[jnp.asarray(x) for x in (tn.reshape(-1, n, k), td.reshape(-1, n, k),
+                                   row.astype(np.int32), dst, h)], impl="ref")
+    _assert_equal(qn, rn)
+    _assert_equal(qd, rd)
+
+
+def test_lookup_one_version_is_the_unversioned_table():
+    """A table of one version, without ``vsel``, is the unversioned call,
+    bit for bit; a table of several versions without ``vsel`` reads
+    version 0; ``vsel`` on a table of one version reads it."""
+    rng = np.random.default_rng(5)
+    Tr, n, k, P = 2, 7, 3, 600
+    tn, td = _random_tables(rng, (2, 3, Tr), n, k)
+    args = (1, _t32(rng.integers(0, 2, P)), _t32(rng.integers(0, n, P)),
+            _t32(rng.integers(0, n, P)), 9)
+    one = Q_tfl.time_flow_lookup(_t32(tn[:, :1]), _t32(td[:, :1]), *args)
+    flat = Q_tfl.time_flow_lookup(_t32(tn[:, 0]), _t32(td[:, 0]), *args)
+    many = Q_tfl.time_flow_lookup(_t32(tn), _t32(td), *args)
+    sel_one = Q_tfl.time_flow_lookup(_t32(tn[:, :1]), _t32(td[:, :1]), *args,
+                                     vsel=_t32(rng.integers(0, 3, n)))
+    for got in (one, many, sel_one):
+        _assert_equal(got[0], flat[0].numpy())
+        _assert_equal(got[1], flat[1].numpy())
+
+
+def test_stack_tables_versioned():
+    """``stack_tables`` on ``[V, Tr, N, D, K]`` tables gives ``[2, V, Tr,
+    N, D, 2, K]``, each version the unversioned packing of its tables."""
+    rng = np.random.default_rng(6)
+    V, Tr, n = 3, 2, 5
+    parts = [*_random_tables(rng, (V, Tr), n, 4),
+             *_random_tables(rng, (V, Tr), n, 1)]
+    table = Q_fabric.stack_tables(*map(_t32, parts))
+    assert table.shape == (2, V, Tr, n, n, 2, 4) and table.is_contiguous()
+    for v in range(V):
+        _assert_equal(table[:, v], Q_fabric.stack_tables(
+            *(_t32(p[v]) for p in parts)).numpy())
+
+
+def test_lookup_validates_versions():
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    vec = z(5)
+    for table, dep in ((z(2, 3, 2, 4, 4, 2, 2), None),
+                       (z(2, 3, 2, 4, 4, 2), z(2, 3, 2, 4, 4, 2))):
+        Q_tfl._check(table, dep, 1, vec, vec, vec, vec, vsel=z(4))
+        assert Q_tfl.table_dims(table, dep) == (3, 2, 4, 4, 2)
+        for bad in (z(5), z(4).long(), z(8)[::2], z(1, 4)):
+            with pytest.raises(ValueError, match="vsel"):
+                Q_tfl._check(table, dep, 1, vec, vec, vec, vec, vsel=bad)
+    with pytest.raises(ValueError):
+        Q_tfl._check(z(2, 3, 2, 2, 4, 4, 2, 2), None, 1, vec, vec, vec, vec)
 
 
 # ---------------------------------------------------------------------------

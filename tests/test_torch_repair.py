@@ -5,7 +5,8 @@ array for array over schemes, schedules, seeds and failure sets;
 ``simulate_phased`` (on the CPU, through the kernels' plain versions)
 equal in every ``SimResult`` field for one phase and for three; and the
 errors: a table cycle that is not the schedule's, an unknown scheme or
-impl, and the device compiler, which waits for ROADMAP Queue 1 item 6.
+impl; and ``repair(impl="jnp")``, the device compiler, against the
+reference's, with its refusal of the host-only schemes.
 """
 import numpy as np
 import pytest
@@ -103,8 +104,17 @@ def test_repair_forwards_compiler_arguments():
 def test_repair_and_reroute_errors():
     qs = Q.round_robin(N, 1)
     none = np.zeros((N, N), bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        Q.repair(qs, "vlb", none, impl="jnp")
+    # the device compiler repairs the TO schemes as the reference's does,
+    # and refuses the host-only ones
+    failed = none.copy()
+    failed[2, 5] = failed[6, 1] = True
+    got = Q.repair(qs, "vlb", failed, impl="jnp", device="cpu")
+    want = R.repair(R.round_robin(N, 1), "vlb", failed, impl="jnp")
+    for name in ("tf_next", "tf_dep", "inj_next", "inj_dep"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert got.multipath == want.multipath
+    with pytest.raises(ValueError, match="host-only"):
+        Q.repair(qs, "ecmp", none, impl="jnp", device="cpu")
     with pytest.raises(ValueError, match="unknown scheme"):
         Q.repair(qs, "teleport", none)
     with pytest.raises(ValueError, match="unknown impl"):

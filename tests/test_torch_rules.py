@@ -2,7 +2,7 @@
 
 * no module of ``src/repro_torch/``, nor ``chip_smoke.py``,
   ``chip_fault_probe.py``, ``chip_decode_probe.py`` or the port's
-  example, imports ``jax``,
+  examples (``examples/*_torch.py``), imports ``jax``,
   ``repro`` or ``networkx`` (the card's machine has none of them), and the
   package imports with all three blocked;
 * entry points run on CUDA unless told otherwise: without a card and
@@ -37,8 +37,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro", "networkx"}
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "chip_fault_probe.py",
-                 ROOT / "chip_decode_probe.py",
-                 ROOT / "examples" / "quickstart_torch.py"])
+                 ROOT / "chip_decode_probe.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set:
@@ -94,12 +94,17 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     tables, wl = _small_run_inputs()
     fab = Q.FabricConfig(slice_bytes=4_000)
     sched = Q.round_robin(6, 1)
+    rcfg = Q.ReconfigConfig(epoch_slices=2, num_epochs=2, k_hot=1)
     for call in (lambda: Q.simulate(tables, wl, fab, 4),
                  lambda: Q.simulate_incremental(tables, wl, fab, 4, window=2),
                  lambda: Q.init_state(tables, wl, fab),
                  lambda: Q.init_state(tables, None, fab),
                  lambda: Q.simulate_phased(sched, [(Q.vlb(sched), 4)], wl,
-                                           fab)):
+                                           fab),
+                 lambda: Q.reconfigure(sched, wl, fab, rcfg),
+                 lambda: Q.vlb(sched, compile_impl="jnp"),
+                 lambda: Q.repair(sched, "hoho", np.zeros((6, 6), bool),
+                                  impl="jnp")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert Q.OpenOpticsNet(cfg, device="cpu").device.type == "cpu"
@@ -138,19 +143,32 @@ def test_misshaped_masks_raise():
 
 
 def test_still_unported_raise_or_are_absent():
-    """What stays unported refuses or is absent, never a stub: the
-    device-resident compiler, also behind ``repair(impl="jnp")`` (ROADMAP
-    Queue 1 item 6), and the sharded, fleet and reconfigure entry points
-    (items 6 and 9)."""
+    """What is ported works and what stays unported is absent, never a
+    stub: the reconfigure loop and the device compiler, also behind
+    ``compile_impl="jnp"`` and ``repair(impl="jnp")`` (ROADMAP Queue 1
+    item 6), are present and run; the sharded and fleet entry points
+    (item 9) are absent."""
     sched = Q.round_robin(6, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        Q.vlb(sched, compile_impl="jnp")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        Q.repair(sched, "vlb", np.zeros((6, 6), bool), impl="jnp")
-    from repro_torch.core import fabric
-    for name in ("simulate_sharded", "simulate_fleet", "reconfigure",
-                 "reconfigure_fleet", "ReconfigConfig"):
-        assert not hasattr(fabric, name) and not hasattr(Q, name), name
+    host = Q.vlb(sched)
+    dev = Q.vlb(sched, compile_impl="jnp", device="cpu")
+    for name in ("tf_next", "tf_dep", "inj_next", "inj_dep"):
+        np.testing.assert_array_equal(getattr(dev, name), getattr(host, name))
+    failed = np.zeros((6, 6), bool)
+    failed[1, 2] = True
+    np.testing.assert_array_equal(
+        Q.repair(sched, "hoho", failed, impl="jnp", device="cpu").tf_next,
+        Q.repair(sched, "hoho", failed).tf_next)
+    tables, wl = _small_run_inputs()
+    res = Q.reconfigure(sched, wl, Q.FabricConfig(slice_bytes=4_000),
+                        Q.ReconfigConfig(epoch_slices=2, num_epochs=2,
+                                         k_hot=1), device="cpu")
+    assert isinstance(res, Q.ReconfigResult)
+    assert res.delivered_bytes.shape == (4,)
+    assert res.epoch_conn.shape == (2, 6, 6, 1)    # 5 base + 1 hot slice
+    from repro_torch.core import fabric, reconfigure
+    for name in ("simulate_sharded", "simulate_fleet", "reconfigure_fleet"):
+        assert not hasattr(fabric, name) and not hasattr(Q, name) \
+            and not hasattr(reconfigure, name), name
 
 
 # ---------------------------------------------------------------------------

@@ -84,3 +84,16 @@ def release_compiled_programs():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one intra-op thread, and restore the
+    count after it. The port's small CPU runs (N = 8, a few thousand
+    packets) gain nothing from a thread pool, and under ``-n`` workers
+    each pool competes with every other worker's for the same cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
