@@ -12,7 +12,10 @@ the RG-LRU scan at RecurrentGemma-9B's prefill shape (B 4, L 3,072, W
 shapes, admission at the fabric's 131,072 packets with 11,772 and 108
 keys and on one packet (its launch floor), and the time-flow lookup in the
 TPU's form (a hash vector, no mask, over the tables that tree's
-``stack_tables`` builds) at 131,072 packets and on one packet. Each turn
+``stack_tables`` builds) at 131,072 packets and on one packet, and in the
+port's form (the packed table, the in-kernel hash of slice 213, masks of
+density 100% and 10%), where the tree has it also with an 8-scenario
+sweep's per-scenario hash index (``hash_period``). Each turn
 also runs ``chip_smoke.py``'s phase-6 window (slices 24-39 of the default
 108-ToR fabric, after slices 0-23) and reports its wall ms per slice
 without the profiler (three runs), and its device ms, wall ms, CUDA
@@ -86,6 +89,16 @@ t["tfl_ms"] = cs.graph_ms(lambda: tfl.time_flow_lookup(
     tn, td, 5, sel, node, dst, hv))
 t["tfl_floor_ms"] = cs.graph_ms(lambda: tfl.time_flow_lookup(
     tn, td, 5, sel[:1], node[:1], dst[:1], hv[:1]))
+import inspect
+fleet_hash = "hash_period" in inspect.signature(tfl.time_flow_lookup).parameters
+for d, tag in ((1.0, "full"), (0.1, "10")):
+    m = torch.tensor(rng.random(P) < d, device=dev)
+    t[f"tfl_port_{tag}_ms"] = cs.graph_ms(lambda: tfl.time_flow_lookup(
+        tn, td, 5, sel, node, dst, 213, mask=m))
+    if fleet_hash:
+        t[f"tfl_port_{tag}_fleet_ms"] = cs.graph_ms(
+            lambda: tfl.time_flow_lookup(tn, td, 5, sel, node, dst, 213,
+                                         mask=m, hash_period=P // 8))
 del tables, tn, td
 wl = synthesize("rpc", N, 64, slice_bytes=75_000, load=0.4,
                 max_packets=1 << 17, seed=0)

@@ -13,9 +13,12 @@ plain versions), phase 17 (the 108-ToR main path with failure and
 control masks and telemetry: its deferred-bytes counter against the packet
 state, and its first 48 slices against the CPU's), phase 18 (the same
 path in unequal windows against the one-shot run), phase 19 (phased
-table swaps: they must change the run) and phase 20 (the reconfigure
+table swaps: they must change the run), phase 20 (the reconfigure
 loop: its versioned installs against the host replay of their versions
-and against the CPU) catch a wrong kernel or a wrong step. For the unchanged tree and for each
+and against the CPU) and phase 21 (the seven architectures' deployments
+against the reference's digests and their runs against the CPU: "phase
+21a"; the scenario sweep's members against their solo runs: "phase 21c")
+catch a wrong kernel or a wrong step. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -42,8 +45,9 @@ TFL = CSRC / "time_flow_lookup.cu"
 FABRIC = Path("src/repro_torch/core/fabric.py")
 FAILURES = Path("src/repro_torch/core/failures.py")
 RECONF = Path("src/repro_torch/core/reconfigure.py")
+MATCHING = Path("src/repro_torch/core/matching.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
-          "phase 18", "phase 19", "phase 20")
+          "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -113,8 +117,8 @@ FAULTS = {
     # the in-kernel multipath hash leaves out the salt of the slice, which
     # shows for every t > 0
     "lookup hash drops the slice's salt": (
-        TFL, "hash32(static_cast<uint32_t>(i) + a.t * 0x9E3779B9u)",
-        "hash32(static_cast<uint32_t>(i))", ("phase 2",)),
+        TFL, "hash32(static_cast<uint32_t>(ih) + a.t * 0x9E3779B9u)",
+        "hash32(static_cast<uint32_t>(ih))", ("phase 2",)),
     # the scalar row loads (K of 1 or 3) read the departure row one slot
     # late for odd K
     "lookup scalar route reads the departure row off by one for odd K": (
@@ -161,6 +165,17 @@ FAULTS = {
     "epoch merge of the current tables skipped": (
         RECONF, "            cur = [torch.where(swt, n, c) for c, n in "
         "zip(cur, new)]\n", "", ("phase 20",)),
+    # the in-kernel hash of a scenario sweep takes each packet's index in
+    # the launch, not in its scenario: scenario 0 still matches
+    "lookup hashes the sweep's global packet index": (
+        TFL, "const int64_t ih = a.hp < a.P ? i % a.hp : i;",
+        "const int64_t ih = i;", ("phase 21c",)),
+    # bvn's bipartite matching takes the rows in reverse order, so its
+    # perfect matchings, and Mordia's schedule, are not the reference's
+    "bvn's Hopcroft-Karp iterates rows in reverse": (
+        MATCHING, "    left, right = range(n), range(n, 2 * n)",
+        "    left, right = range(n - 1, -1, -1), range(n, 2 * n)",
+        ("phase 21a",)),
 }
 CHECKS = """
 import sys, torch
@@ -221,6 +236,9 @@ for phase, check in (("phase 18", lambda: cs.check_service(
                           dev, dict(wall_s=float("nan")))),
                      ("phase 19", lambda: cs.check_phased(dev)),
                      ("phase 20", lambda: cs.check_reconfigure(
+                         dev, profile=False)),
+                     ("phase 21a", lambda: cs.check_architectures(dev)),
+                     ("phase 21c", lambda: cs.check_fleet(
                          dev, profile=False))):
     if phase in phases:
         try:
@@ -239,6 +257,8 @@ def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
     shutil.copytree(ROOT / "src", copy / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+    shutil.copytree(ROOT / "examples", copy / "examples",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     if fault is not None:
         path = copy / fault[0]
         text = path.read_text()
@@ -249,7 +269,7 @@ def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
     phases = PHASES if fault is None else fault[3]
     out = subprocess.run([sys.executable, "-c", CHECKS, str(copy),
                           ",".join(phases)],
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True, timeout=1500)
     text = out.stdout + out.stderr[-2000:]
     for line in text.splitlines():
         print(f"[{name}] {line}", flush=True)
@@ -289,7 +309,8 @@ def main() -> int:
             if fault is None:
                 caught = verdict == "FAILED: none"
             else:
-                caught = any(p in verdict for p in fault[3])
+                failed = verdict.removeprefix("FAILED: ").split(", ")
+                caught = any(p in failed for p in fault[3])
                 if fault[0] == DECODE:
                     caught &= last_split_caught(text)
                 if fault[0] == RG_WRAPPER:

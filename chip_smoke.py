@@ -24,7 +24,10 @@ Phases, each fatal on failure:
    version a different table, ``vsel`` the same at every node or drawn per
    node (some out of range, which clamp), alone and with the offsets, at
    both sites, at the main path's shape with the three masks and on small
-   tables of every route.
+   tables of every route; and with a scenario sweep's per-scenario hash
+   index: B of 1, 2 and 8 scenarios' tables on the node axis, 16,411
+   packets a scenario (not a multiple of the block), both sites, two
+   masks, offsets at B = 8.
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
    kernel's launch floor (the same call on one packet); split admission's
@@ -33,7 +36,9 @@ Phases, each fatal on failure:
    table, the in-kernel hash, masks of density 100%, 10% and 1%), and the
    port's form with per-node slice offsets beside the same calls without
    them, in turns; and with offsets and a table version a node, at V = 2
-   and 3, beside the same calls on the unversioned table, in turns.
+   and 3, beside the same calls on the unversioned table, in turns; and
+   with an 8-scenario sweep's per-scenario hash index beside the same
+   calls without it, in turns.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -158,6 +163,27 @@ Phases, each fatal on failure:
    its slices, the kernels a slice and the lookup's device time of one
    profiled epoch, peak device memory.
 
+21. The seven architectures of paper §6 Case I (clos, c-through,
+   jupiter, mordia, rotornet, opera, rotornet-ucmp) through
+   ``build_arch`` of ``examples/architecture_comparison_torch.py``, and the
+   scenario sweep. (a) At fig8's size (8 ToRs, 10 us slices, 700 slices,
+   its two traffic classes): each deployment's schedule and tables equal
+   to the reference's (digests the CPU tests pin), each run on the card
+   equal to the CPU's in every field, the FCT table printed. (b) At 108
+   ToRs (phase 4's workload, 214 slices, 6 us slices): the host seconds of
+   ``edmonds``, ``jupiter`` (4 uplinks) and ``bvn`` (216 peels) and their
+   schedules' digests, slices/s and the lookup and admission launches a
+   slice of each architecture, its first 16 slices equal to the CPU's. The
+   CPU runs of (a) and (b) go to six worker processes while the card runs.
+   (c) ``simulate_fleet`` at 108 ToRs: eight seeds of phase 4's workload on
+   phase 4's fabric, and four failure and control traces of one workload
+   with telemetry on ``ucmp`` (whose entries hold several paths); every
+   member equal to its solo ``simulate`` on the card in every field and
+   counter, each sweep's launches one scenario's; scenario-slices/s beside
+   the solo runs', kernels and device time a slice of a profiled window of
+   the eight-seed sweep (within 10% of phase 6's kernels at one scenario),
+   peak device memory.
+
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
 or any phase fails.
@@ -185,6 +211,7 @@ SLICE_US = 6.0          # 100 Gbps x 6 us = 75,000 B per circuit per slice
 SLICES = 214            # two cycles of the 107-slice rotor schedule
 CPU_SLICES = 48
 P_MAIN = 1 << 17        # packets of the main path, and of the kernel inputs
+FLEET_HASH_PS = 16_411  # phase 2's packets per scenario of a sweep (odd)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CORE_OPS_PER_S = 67e12      # H100 SXM rate outside the tensor cores
 TC_BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 dense tensor-core peak
@@ -299,7 +326,7 @@ def check_lookup(dev, table):
         return sum(r[0] for r in res), max(r[1] for r in res)
 
     def new_case(tbl, P, seed, density=None, t=None, offsets=False,
-                 per_packet=True, vsel=None):
+                 per_packet=True, vsel=None, hp=None):
         """The port's form on ``tbl`` (packed, or a (next, dep) pair):
         a mask of the given density (None: no mask), the in-kernel hash of
         slice t (None: a hash vector), per-node slice offsets drawn from
@@ -307,8 +334,9 @@ def check_lookup(dev, table):
         packet or the hop site's constant 1 (per_packet), a table version
         per node (vsel: None, "uniform" the last version at every node,
         "mixed" drawn per node, "clamped" drawn from [-1, V] so some
-        clamp); the plain version gets the hash vector ``salted_hash``
-        makes for t."""
+        clamp), a scenario sweep's hash period (hp: packet i hashes i mod
+        hp); the plain version gets the hash vector ``salted_hash`` makes
+        for t (of each index mod hp)."""
         rng = np.random.default_rng(seed)
         tn, td = (tbl, None) if isinstance(tbl, torch.Tensor) else tbl
         V, Tr, N, D, _ = tfl.table_dims(tn, td)
@@ -335,11 +363,11 @@ def check_lookup(dev, table):
             hv_plain = hv
         else:
             hv = t
-            hv_plain = tfl.salted_hash(
-                torch.arange(P, dtype=torch.int64, device=dev), t)
+            pid = torch.arange(P, dtype=torch.int64, device=dev)
+            hv_plain = tfl.salted_hash(pid if hp is None else pid % hp, t)
         got = poisoned(lambda: tfl.time_flow_lookup(
             tn, td, tm, sel, node, dst, hv, mask=mask, phase_off=po,
-            vsel=vs))
+            vsel=vs, hash_period=hp))
         want = tfl.time_flow_lookup_plain(tn, td, tm, sel, node, dst,
                                           hv_plain, mask, phase_off=po,
                                           vsel=vs)
@@ -432,6 +460,21 @@ def check_lookup(dev, table):
         new_cases.append((f"small K={k} stacks V=3 vsel mixed, hop site",
                           (t32(tn), t32(td)), 4097,
                           dict(density=0.5, per_packet=False, vsel="mixed")))
+    # a scenario sweep's per-scenario hash index (simulate_fleet): B
+    # scenarios' tables stacked on the node axis (each its own: slices
+    # rolled by b), packets per scenario not a multiple of the 256-thread
+    # block, both sites, masks, offsets per node row at B = 8
+    for B in (1, 2, 8):
+        ftab = torch.cat([table.roll(b, dims=1) for b in range(B)],
+                         dim=2).contiguous()
+        for site, per_packet in (("fused", True), ("hop", False)):
+            for d in (0.5, 0.03):
+                new_cases.append((
+                    f"sweep B={B} P={B * FLEET_HASH_PS} per-scenario hash, "
+                    f"{site} site, mask {d}", ftab, B * FLEET_HASH_PS,
+                    dict(density=d, t=213, per_packet=per_packet,
+                         hp=FLEET_HASH_PS, offsets=B == 8)))
+        del ftab
     for i, (name, tbl, P, kw) in enumerate(new_cases):
         m, e = new_case(tbl, P, seed=200 + i, **kw)
         log(f"  lookup {name}: mismatches={m}")
@@ -2149,6 +2192,311 @@ def check_reconfigure(dev, profile: bool = True) -> dict:
     return out
 
 
+# -- phase 21: the seven architectures and the scenario sweep -----------------
+
+ARCH_CPU_SLICES = 16            # (b): the first slices held against the CPU
+FLEET_SEEDS = 8                 # (c): seeds 0-7 of phase 4's workload
+FLEET_TRACES = 4                # (c): failure / control trace seeds 0-3
+FLEET_FLOW_SEEDS = 4            # (c): seeds 0-3 of per-flow multipath (wcmp)
+FLEET_KERNEL_RATIO = 1.1        # (c): kernels a slice at B = 8 over phase 6's
+CPU_WORKERS = 6                 # processes for the CPU runs of (a) and (b)
+# digests (sha256 of the int32 bytes, first 16 hex digits) of what the
+# reference deploys: at fig8's size each architecture's schedule and its
+# four tables; at 108 ToRs the schedules of edmonds, jupiter (4 uplinks, 16
+# moves) and bvn (216 peels) on phase 4's traffic matrix
+# (tests/test_torch_architectures.py holds them against the reference)
+ARCH_DIGESTS = {
+    "clos": "b56e66f6ed18806d", "c-through": "42545a262ba80f88",
+    "jupiter": "76f5411a3add1e22", "mordia": "988c6dc1fcfb8b83",
+    "rotornet": "a9c88be78135128b", "opera": "7d25b3e4ae819034",
+    "rotornet-ucmp": "2d47c6c1a811f41b"}
+SCHED_DIGESTS_108 = {"edmonds": "e7b904f66fa169df",
+                     "jupiter": "8600f728220949f2", "bvn": "7b5829bf974364ea"}
+
+
+def digest(*arrays) -> str:
+    """sha256 of the arrays' int32 bytes, its first 16 hex digits."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a, dtype=np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def arch_digest(net) -> str:
+    r = net.routing
+    return digest(net.schedule.conn, r.tf_next, r.tf_dep, r.inj_next,
+                  r.inj_dep)
+
+
+def arch_module():
+    """``examples/architecture_comparison_torch.py``: ``build_arch`` for
+    the seven architectures, and fig8's workload."""
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import architecture_comparison_torch as arch
+    return arch
+
+
+def cpu_arch_run(name: str, n_tors: int, slice_us: float, slices: int, wl,
+                 tm):
+    """A worker's job: one architecture's run on the CPU's plain versions,
+    on one thread."""
+    torch.set_num_threads(1)
+    net = arch_module().build_arch(name, n_tors, slice_us, tm=tm,
+                                   device="cpu")
+    return net.run(wl, slices)
+
+
+def check_architectures(dev) -> dict:
+    """Phase 21 (a) and (b): the seven architectures of paper §6 Case I
+    through ``build_arch`` of ``examples/architecture_comparison_torch.py``
+    on the card. (a) at fig8's size, 8 ToRs and 700 slices: each deployment's
+    digest the reference's, each run equal to the CPU's in every field,
+    the FCT table. (b) at 108 ToRs (phase 4's workload, 214 slices, 6 us
+    slices): the host seconds of the three TA schedulers and their
+    schedules' digests, slices/s and the hand-written kernels' launches a
+    slice of each run, its first 16 slices equal to the CPU's. The CPU
+    runs go to worker processes while the card runs. Raises
+    ``SystemExit`` on a mismatch; returns the numbers."""
+    import multiprocessing as mp
+    from repro_torch.core import bvn, edmonds, jupiter
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    arch = arch_module()
+    out = dict(fct={}, arch_108={})
+    n8, us8, s8, us108 = arch.N, arch.SLICE_US, arch.SLICES, SLICE_US
+    wl8, n_mice = arch.fig8_workload()
+    wl108 = main_workload()
+    tm8, tm108 = arch.traffic_tm(wl8, n8), arch.traffic_tm(wl108, N_TORS)
+    # the TA schedulers at 108 ToRs, timed on the host, against the
+    # reference's schedules
+    sched_s = {}
+    for name, fn in (("edmonds", lambda: edmonds(tm108, slice_us=us108)),
+                     ("jupiter", lambda: jupiter(
+                         tm108, n_nodes=N_TORS, n_uplinks=4, max_moves=16,
+                         slice_us=us108)),
+                     ("bvn", lambda: bvn(tm108, max_perms=2 * N_TORS,
+                                         slice_us=us108))):
+        t0 = time.perf_counter()
+        sched = fn()
+        sched_s[name] = time.perf_counter() - t0
+        if digest(sched.conn) != SCHED_DIGESTS_108[name]:
+            raise SystemExit(f"phase 21(b): {name}'s schedule at {N_TORS} "
+                             "ToRs is not the reference's")
+    out["scheduler_host_s"] = sched_s
+    nets8 = {}
+    for name in arch.ARCHS:
+        nets8[name] = arch.build_arch(name, n8, us8, tm=tm8, device=dev)
+        if arch_digest(nets8[name]) != ARCH_DIGESTS[name]:
+            raise SystemExit(f"phase 21(a): {name}'s schedule or tables are "
+                             "not the reference's")
+    ctx = mp.get_context("spawn")
+    pool = ctx.Pool(CPU_WORKERS)
+    try:
+        cpu8 = {n: pool.apply_async(cpu_arch_run, (n, n8, us8, s8, wl8, tm8))
+                for n in arch.ARCHS}
+        cpu108 = {n: pool.apply_async(cpu_arch_run, (
+            n, N_TORS, us108, ARCH_CPU_SLICES, wl108, tm108))
+            for n in arch.ARCHS}
+        pool.close()
+        # (a) on the card while the CPU runs
+        log(f"phase 21(a) fig8, {n8} ToRs, {s8} slices, {wl8.num_packets} "
+            f"packets: {'architecture':16s} {'mice p50':>9s} "
+            f"{'mice p99':>9s} {'eleph p50':>10s}")
+        res8 = {}
+        for name in arch.ARCHS:
+            res8[name] = nets8[name].run(wl8, s8)
+            m50, m99, e50 = arch.fct_row(wl8, res8[name].t_deliver, n_mice)
+            out["fct"][name] = dict(mice_p50_us=m50, mice_p99_us=m99,
+                                    eleph_p50_us=e50)
+            log(f"  {name:16s} {m50:8.0f}us {m99:8.0f}us {e50:9.0f}us")
+        # (b) the first 16 slices on the card
+        nets108 = {name: arch.build_arch(name, N_TORS, us108, tm=tm108,
+                                         device=dev)
+                   for name in arch.ARCHS}
+        first108 = {name: net.run(wl108, ARCH_CPU_SLICES)
+                    for name, net in nets108.items()}
+        t0 = time.perf_counter()
+        for name in arch.ARCHS:
+            for tag, got, job in (("a", res8[name], cpu8[name]),
+                                  ("b", first108[name], cpu108[name])):
+                bad = sim_diff(got, job.get(timeout=600))
+                if bad is not None:
+                    raise SystemExit(f"phase 21({tag}): {name} differs from "
+                                     f"the CPU in {bad}")
+        out["cpu_wait_s"] = time.perf_counter() - t0
+        pool.join()
+    finally:
+        pool.terminate()
+        pool.join()
+    log(f"phase 21(a) the seven runs equal the CPU's in every field; (b) "
+        f"their first {ARCH_CPU_SLICES} slices at {N_TORS} ToRs too")
+    # (b) the whole runs on the card, timed, the launch counters zeroed
+    # just before each
+    for name, net in nets108.items():
+        net.run(wl108, 2)                    # warm: the step's tables
+        torch.cuda.synchronize()
+        tfl.launches = adm.launches = 0
+        t0 = time.perf_counter()
+        res = net.run(wl108, SLICES)
+        wall = time.perf_counter() - t0
+        done = res.t_deliver >= 0
+        out["arch_108"][name] = dict(
+            slices_per_s=SLICES / wall, delivered=float(done.mean()),
+            uplinks=net.n_uplinks, schedule_slices=net.schedule.num_slices,
+            table_k=int(net.routing.tf_next.shape[-1]),
+            lookup_launches_per_slice=tfl.launches / SLICES,
+            admission_launches_per_slice=adm.launches / SLICES)
+        if not done.any():
+            raise SystemExit(f"phase 21(b): {name} delivered nothing")
+        log(f"  21(b) {name}: " + json.dumps(out["arch_108"][name]))
+    return out
+
+
+def fleet_window(dev, tables, wls, cfg):
+    """The step and inputs of a sweep, as ``simulate_fleet`` builds them,
+    for a profiled window: (step, j, the flow rows of its state)."""
+    from repro_torch.core import fabric as fabric_mod
+    B = len(wls)
+    F = max(fabric_mod._num_flows(w) for w in wls)
+    j = fabric_mod._fleet_arrays([tables] * B, wls, None, None, F, 0,
+                                 dev)
+    step = fabric_mod._make_step(j, cfg, tables.multipath == "packet")
+    return step, j, B * F
+
+
+def check_fleet(dev, phase6=None, profile: bool = True) -> dict:
+    """Phase 21(c): ``simulate_fleet`` at 108 ToRs. Eight seeds of phase 4's
+    workload on phase 4's fabric (``vlb``), four failure and control
+    trace seeds on one workload with telemetry (``ucmp``, whose entries
+    hold several paths, so that the per-packet hash matters), and four
+    seeds on per-flow multipath (Jupiter's ``wcmp`` on a 4-uplink mesh:
+    each scenario hashes its own flow ids, and the lookup takes the flow
+    hash with no hash period): every member equal to its solo
+    ``simulate`` on the card in every field and counter.
+    Scenario-slices/s of the sweep beside the solo runs' total, kernels and
+    device time a slice of a profiled sweep window beside phase 6's
+    (``phase6``: its kernels and device ms a slice), peak device memory.
+    Raises ``SystemExit`` on a mismatch; returns the numbers."""
+    from repro_torch.core import (FabricConfig, FabricTables, TelemetryConfig,
+                                  compile_control, compile_masks,
+                                  random_control_trace, random_trace,
+                                  round_robin, simulate, simulate_fleet,
+                                  synthesize, ucmp, uniform_mesh, vlb, wcmp)
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    cfg = FabricConfig()
+    out = {}
+
+    def sweep(tag, tables, wls, **kw):
+        """The sweep and its solo runs, timed; every member checked."""
+        B = len(wls)
+        simulate_fleet(tables, wls, cfg, 2, device=dev)   # warm
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tfl.launches = adm.launches = 0
+        t0 = time.perf_counter()
+        fleet = simulate_fleet(tables, wls, cfg, SLICES, device=dev, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(tfl=tfl.launches, adm=adm.launches)
+        want = dict(tfl=SLICES * (1 + cfg.hops_per_slice),
+                    adm=SLICES * cfg.hops_per_slice)
+        if launches != want:
+            raise SystemExit(f"phase 21(c) {tag}: launches {launches} (want "
+                             f"{want}): a slice's launches must carry every "
+                             "scenario")
+        solo_wall = 0.0
+        for b in range(B):
+            skw = {k: (v if k == "telemetry" or v is None else v[b])
+                   for k, v in kw.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo = simulate(tables, wls[b], cfg, SLICES, device=dev, **skw)
+            solo_wall += time.perf_counter() - t0
+            bad = sim_diff(fleet[b], solo)
+            if bad is not None:
+                raise SystemExit(f"phase 21(c) {tag}: scenario {b} differs "
+                                 f"from its solo run in {bad}")
+        done = [float((r.t_deliver >= 0).mean()) for r in fleet]
+        out[tag] = dict(
+            scenarios=B, packets_per_scenario=wls[0].num_packets,
+            fleet_wall_s=wall, solo_wall_s=solo_wall,
+            fleet_scenario_slices_per_s=B * SLICES / wall,
+            solo_scenario_slices_per_s=B * SLICES / solo_wall,
+            peak_mib=peak / 2 ** 20, held_mib=held / 2 ** 20,
+            launches=launches, delivered=done)
+        log(f"  21(c) {tag}: " + json.dumps(out[tag]))
+
+    # 1. eight seeds of phase 4's workload on phase 4's fabric
+    tables = FabricTables.build(sched, vlb(sched, kpaths=4))
+    wls = [synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
+                      max_packets=P_MAIN, seed=s) for s in range(FLEET_SEEDS)]
+    if {w.num_packets for w in wls} != {P_MAIN}:
+        raise SystemExit("phase 21(c): a seed's workload is not "
+                         f"{P_MAIN} packets")
+    sweep("seeds", tables, wls)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        from torch.autograd import DeviceType
+        step, j, nf = fleet_window(dev, tables, wls, cfg)
+        bare_ms = window_wall_ms(step, j, nf)
+        prof = tprofile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        wall_ms = window_wall_ms(step, j, nf, prof)
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
+        ev.sort(key=lambda e: -self_device_ms(e))
+        tot = sum(self_device_ms(e) for e in ev)
+        kps = sum(e.count for e in ev if not e.key.startswith(
+            ("Memcpy", "Memset"))) / 16
+        out["seeds"].update(kernels_per_slice=kps,
+                            device_ms_per_slice=tot / 16,
+                            wall_ms_per_slice=bare_ms / 16,
+                            profiled_wall_ms_per_slice=wall_ms / 16,
+                            idle_share=1 - tot / wall_ms)
+        for e in ev[:10]:
+            log(f"  {self_device_ms(e) / 16:8.4f} ms/slice "
+                f"{self_device_ms(e) / tot:6.1%} x{e.count // 16:<4d}/slice "
+                f"{e.key[:100]}")
+        del step, j
+        if phase6 is not None and kps > FLEET_KERNEL_RATIO * phase6[0]:
+            raise SystemExit(f"phase 21(c): {kps:.2f} kernels a slice at B = "
+                             f"{FLEET_SEEDS}, more than {FLEET_KERNEL_RATIO}x "
+                             f"phase 6's {phase6[0]:.2f} at B = 1")
+    del wls
+    # 2. four failure and control traces on one workload, with telemetry
+    tables = FabricTables.build(sched, ucmp(sched))
+    wl = main_workload()
+    fails = [compile_masks(random_trace(s, sched, SLICES, n_events=6), sched,
+                           SLICES) for s in range(FLEET_TRACES)]
+    ctrls = [compile_control(random_control_trace(s, N_TORS, SLICES,
+                                                  n_events=4), SLICES, N_TORS)
+             for s in range(FLEET_TRACES)]
+    sweep("traces", tables, [wl] * FLEET_TRACES, failures=fails,
+          control=ctrls, telemetry=TelemetryConfig())
+    del fails, ctrls
+    # 3. per-flow multipath: seeds of phase 4's workload on wcmp tables
+    mesh = uniform_mesh(N_TORS, 4)
+    tables = FabricTables.build(mesh, wcmp(mesh))
+    if tables.multipath != "flow" or not (
+            (tables.inj_next >= 0).sum(-1) > 1).any():
+        raise SystemExit("phase 21(c): the wcmp tables are not per-flow "
+                         "multipath over several slots")
+    wls = [synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
+                      max_packets=P_MAIN, seed=s)
+           for s in range(FLEET_FLOW_SEEDS)]
+    sweep("flows", tables, wls)
+    out["flows"]["num_flows"] = [w.num_flows for w in wls]
+    return out
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -2270,10 +2618,11 @@ def main() -> int:
     Tr = table.shape[1]
     phase_off = t32(rng.integers(-2 * Tr, 2 * Tr + 1, N_TORS))
 
-    def new_form(d, P=P, po=None):
+    def new_form(d, P=P, po=None, hp=None):
         return lambda: tfl.time_flow_lookup(table, None, 5, sel[:P],
                                             node[:P], dstv[:P], 213,
-                                            mask=masks[d][:P], phase_off=po)
+                                            mask=masks[d][:P], phase_off=po,
+                                            hash_period=hp)
     timings["tfl_packed_ms"] = graph_ms(lambda: tfl.time_flow_lookup(
         table, None, 5, sel, node, dstv, hv))
     # with and without offsets in turns: without, with, with, without
@@ -2284,6 +2633,16 @@ def main() -> int:
         timings[f"tfl_new_{tag}_off_ms"] = statistics.fmean(runs[1:3])
         log(f"phase 3 lookup at mask {d}, without / with / with / without "
             "offsets: "
+            + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
+    # the per-scenario hash index of an 8-scenario sweep (simulate_fleet),
+    # in turns with the same calls without it: without, with, with, without
+    for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1")):
+        runs = [graph_ms(new_form(d, hp=hp))
+                for hp in (None, P // 8, P // 8, None)]
+        timings[f"tfl_fleet_{tag}_without_ms"] = statistics.fmean(runs[::3])
+        timings[f"tfl_fleet_{tag}_ms"] = statistics.fmean(runs[1:3])
+        log(f"phase 3 lookup at mask {d}, without / with / with / without "
+            "the per-scenario hash index: "
             + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
     timings["tfl_new_floor_ms"] = graph_ms(new_form(1.0, P=1))
     timings["tfl_new_off_floor_ms"] = graph_ms(new_form(1.0, P=1,
@@ -2590,6 +2949,28 @@ def main() -> int:
         f"(hotswap), degraded epochs "
         f"{reconf['b_2pc_degrade']['degraded_epochs']} (2PC)")
 
+    # -- 21. the seven architectures and the scenario sweep ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    archs = check_architectures(dev)
+    log(f"phase 21(a)-(b) seven architectures: {json.dumps(archs)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = check_fleet(dev, phase6=(kernels_per_slice, tot / 16))
+    seeds = fleet["seeds"]
+    log(f"phase 21(c) simulate_fleet: {json.dumps(fleet)}")
+    log(f"phase 21 ({time.perf_counter() - t21:.1f} s; {smi}): the sweep of "
+        f"{FLEET_SEEDS} seeds {seeds['fleet_scenario_slices_per_s']:.1f} "
+        f"scenario-slices/s against {seeds['solo_scenario_slices_per_s']:.1f}"
+        f" for the solo runs; {seeds['kernels_per_slice']:.2f} kernels and "
+        f"{seeds['device_ms_per_slice']:.4f} ms of device time a slice "
+        f"(phase 6 at one scenario: {kernels_per_slice:.2f}, "
+        f"{tot / 16:.4f}); peak device memory {seeds['peak_mib']:.1f} MiB; "
+        f"the {FLEET_TRACES} traces {fleet['traces']['fleet_scenario_slices_per_s']:.1f}"
+        f" against {fleet['traces']['solo_scenario_slices_per_s']:.1f}; "
+        "every member equal to its solo run")
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -2672,6 +3053,17 @@ def main() -> int:
                  if k != "epoch"},
              reconfigure_path_us_per_call=reconf["epoch"][
                  "lookup_us_per_call"],
+             architecture_path_launches_per_slice={
+                 k: v["lookup_launches_per_slice"]
+                 for k, v in archs["arch_108"].items()},
+             fleet_path_launches={k: fleet[k]["launches"]["tfl"]
+                                  for k in ("seeds", "traces")},
+             fleet_hash={tag: dict(ms=timings[f"tfl_fleet_{tag}_ms"],
+                                   ms_without=timings[
+                                       f"tfl_fleet_{tag}_without_ms"],
+                                   mask_density=d, **new_form_bound(d))
+                         for d, tag in ((1.0, "full"), (0.1, "10"),
+                                        (0.01, "1"))},
              main_path=dict(mask_density=main_density,
                             device_us_per_call=tfl_main_us,
                             kernels_per_slice=kernels_per_slice)),
@@ -2690,6 +3082,11 @@ def main() -> int:
              reconfigure_path_launches={
                  k: v["launches"]["adm"] for k, v in reconf.items()
                  if k != "epoch"},
+             architecture_path_launches_per_slice={
+                 k: v["admission_launches_per_slice"]
+                 for k, v in archs["arch_108"].items()},
+             fleet_path_launches={k: fleet[k]["launches"]["adm"]
+                                  for k in ("seeds", "traces")},
              rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
                          **bound(adm_rx_bytes, adm_ops))),
     ]

@@ -1,27 +1,30 @@
 """OpenOptics core in PyTorch: the port of ``repro.core``'s main path.
 
 Control plane (host numpy, copied from the reference): topology
-(schedules), routing (time-flow table compilation), timeflow (entry-level
-time-flow tables), traces (synthetic
-workloads), failures (fault traces and their masks, table repair, fast
-reroute), controlplane (clock skew, install delay and loss, controller
-stalls), guardband (the §7 minimum-slice derivation), toolkit (packet
-traces and table, telemetry and sharding checkers). Data plane (PyTorch on
-one device): fabric (calendar queues, congestion detection, push-back,
-offloading, failure and control masks, telemetry counters, one-shot and
-incremental runs, phased table swaps, versioned tables), net (the user
-API, run or as a clocked service), and the traffic-aware reconfigure loop
-(reconfigure) with its device-side routing compiler (routing_jnp) and
-demand schedulers (topology_jnp).
+(schedules, with the traffic-matrix schedulers' matchings in matching),
+routing (time-flow table compilation), timeflow (entry-level time-flow
+tables), traces (synthetic workloads), failures (fault traces and their
+masks, table repair, fast reroute), controlplane (clock skew, install
+delay and loss, controller stalls), guardband (the §7 minimum-slice
+derivation), toolkit (packet traces and table, telemetry and sharding
+checkers). Data plane (PyTorch on one device): fabric (calendar queues,
+congestion detection, push-back, offloading, failure and control masks,
+telemetry counters, one-shot and incremental runs, scenario sweeps,
+phased table swaps, versioned tables), net (the user API, run or as a
+clocked service), and the traffic-aware reconfigure loop (reconfigure)
+with its device-side routing compiler (routing_jnp) and demand
+schedulers (topology_jnp).
 """
-from .topology import (Circuit, Schedule, connect, round_robin, uniform_mesh,
-                       circuits_to_conn, conn_to_circuits, deploy_topo_check)
+from .topology import (Circuit, Schedule, connect, round_robin, edmonds, bvn,
+                       jupiter, sorn, uniform_mesh, circuits_to_conn,
+                       conn_to_circuits, deploy_topo_check)
 from .routing import (CompiledRouting, direct, vlb, opera, ucmp, hoho, ecmp,
                       wcmp, ksp, neighbors, earliest_path, add_entry,
                       first_direct_offsets)
 from .timeflow import Entry, TimeFlowTable
 from .fabric import (FabricConfig, FabricState, FabricTables, Workload,
-                     SimResult, simulate, simulate_incremental, init_state,
+                     SimResult, simulate, simulate_fleet,
+                     simulate_incremental, init_state,
                      ingest, step_slices, finalize, tables_from_arrays,
                      workload_from_arrays)
 from .telemetry import TelemetryConfig, TelemetryCounters
@@ -39,13 +42,15 @@ from .guardband import GuardbandInputs, derive as derive_guardband
 from . import routing_jnp, toolkit, topology_jnp
 
 __all__ = [
-    "Circuit", "Schedule", "connect", "round_robin", "uniform_mesh",
+    "Circuit", "Schedule", "connect", "round_robin", "edmonds", "bvn",
+    "jupiter", "sorn", "uniform_mesh",
     "circuits_to_conn", "conn_to_circuits", "deploy_topo_check",
     "CompiledRouting", "direct", "vlb", "opera", "ucmp", "hoho", "ecmp",
     "wcmp", "ksp", "neighbors", "earliest_path", "add_entry",
     "first_direct_offsets", "Entry", "TimeFlowTable",
     "FabricConfig", "FabricState", "FabricTables", "Workload", "SimResult",
-    "simulate", "simulate_incremental", "init_state", "ingest",
+    "simulate", "simulate_fleet", "simulate_incremental", "init_state",
+    "ingest",
     "step_slices", "finalize", "tables_from_arrays", "workload_from_arrays",
     "TelemetryConfig", "TelemetryCounters",
     "OpenOpticsNet", "clos_routing",

@@ -41,9 +41,17 @@ results field for field.
 * Versioned tables (the reconfigure loop's installs,
   :mod:`.reconfigure`): a window may carry ``V`` table versions and a
   per-slice, per-ToR version select; both lookup sites then read each
-  ToR's version through the lookup kernel's ``[N]`` ``vsel``. The
-  reference's sharded and batched entry points are not ported yet
-  (ROADMAP Queue 1 item 9).
+  ToR's version through the lookup kernel's ``[N]`` ``vsel``.
+* Scenario sweeps (:func:`simulate_fleet`, the reference's vmapped
+  ``simulate_fleet``): B scenarios run through one step a slice, every
+  launch carrying all of them. The layout is scenario-major: packet ``p``
+  of scenario ``b`` is packet ``b·P + p``, its ToRs are rows ``b·N + n``
+  of the node axis (schedule, tables, masks, queues, counters), its
+  circuits keys ``b·N(N+1) + key``; destinations, next hops and the
+  electrical peer ``N`` stay per scenario. Per-slice stats are reduced
+  per scenario, and the lookup hashes each packet's index within its
+  scenario. The reference's sharded entry point is not ported yet
+  (ROADMAP Queue 1 item 9), nor ``reconfigure_fleet``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -61,7 +69,8 @@ from .telemetry import TelemetryConfig, TelemetryCounters, counters_from_out
 from .topology import Schedule
 
 __all__ = ["FabricConfig", "Workload", "FabricTables", "SimResult",
-           "FabricState", "simulate", "simulate_incremental", "init_state",
+           "FabricState", "simulate", "simulate_fleet",
+           "simulate_incremental", "init_state",
            "ingest", "step_slices", "finalize", "tables_from_arrays",
            "workload_from_arrays", "resolve_device"]
 
@@ -208,8 +217,11 @@ def resolve_device(device=None) -> torch.device:
 
 def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
                 node_ok=None, t0: int = 0):
-    """Per-circuit capacity ``[R, N*(N+1)]``, keyed loc*(N+1)+peer; key
-    loc*(N+1)+N is the electrical egress. Without failure masks the R rows
+    """Per-circuit capacity ``[R, M*(N+1)]``, keyed loc*(N+1)+peer; key
+    loc*(N+1)+N is the electrical egress. ``conn`` is ``[T, M, U]``: M = N
+    ToRs, or a scenario sweep's B·N (each scenario's ToRs a block of rows
+    whose peers lie in ``[0, N)``; its masks ``[W, B·N, N]`` and ``[W,
+    B·N]``). Without failure masks the R rows
     are the T slices of the cycle: a circuit admits ``slice_bytes``, an
     egress ``elec_bytes``. With them (``link_cap`` ``[W, N, N]``,
     ``node_ok`` ``[W, N]``) the rows are the W slices of the window that
@@ -217,19 +229,19 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
     for all of them at once: a circuit keeps ``link_cap`` of
     ``slice_bytes``, the degraded product in float32 truncated toward
     zero, a healthy (>= 1) or dead (<= 0) link exact; a down ToR's
-    electrical egress gets nothing. The result takes 4·R·N·(N+1) bytes:
+    electrical egress gets nothing. The result takes 4·R·M·(N+1) bytes:
     with masks, about as much again as the window's ``link_cap``."""
-    T, _, U = conn.shape
+    T, M, U = conn.shape
     dev = conn.device
     R = T if link_cap is None else link_cap.shape[0]
-    NKEY = N * (N + 1)
+    NKEY = M * (N + 1)
     caps = torch.zeros((R, NKEY), dtype=_I32, device=dev)
-    rows = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    rows = torch.arange(M, dtype=torch.int64, device=dev)[None, :]
     rrows = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
-    conn_r = conn[(torch.arange(R, device=dev) + t0) % T]      # [R, N, U]
+    conn_r = conn[(torch.arange(R, device=dev) + t0) % T]      # [R, M, U]
     flat = caps.view(-1)
     for k in range(U):
-        peer = conn_r[:, :, k].to(torch.int64)                # [R, N]
+        peer = conn_r[:, :, k].to(torch.int64)                # [R, M]
         keyk = rows * (N + 1) + torch.where(peer >= 0, peer, N)
         scaled = torch.full(peer.shape, cfg.slice_bytes, dtype=_I32,
                             device=dev)
@@ -240,7 +252,7 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
                 torch.where(lck <= 0.0, 0, (lck * cfg.slice_bytes).to(_I32)))
         flat.index_add_(0, (rrows * NKEY + keyk).reshape(-1),
                         torch.where(peer >= 0, scaled, 0).reshape(-1))
-    elec = torch.arange(N, device=dev) * (N + 1) + N
+    elec = torch.arange(M, device=dev) * (N + 1) + N
     caps[:, elec] += (cfg.elec_bytes if node_ok is None else
                       torch.where(node_ok, cfg.elec_bytes, 0).to(_I32))
     return caps
@@ -279,8 +291,11 @@ def _spread_offsets(off, looked_up, pid):
 
 
 def _init_state(j, num_flows: int):
-    """Fresh per-packet state: all packets un-injected, queues empty."""
+    """Fresh per-packet state: all packets un-injected, queues empty. In a
+    scenario sweep ``N`` is the node axis's B·N rows, ``num_flows`` the
+    B·F flow rows, and ``reorder`` a ``[B]`` count."""
     T, N, _ = j["conn"].shape
+    B = j.get("num_scenarios", 1)
     P = j["src"].shape[0]
     dev = j["src"].device
     full = lambda shape, v: torch.full(shape, v, dtype=_I32, device=dev)
@@ -293,7 +308,7 @@ def _init_state(j, num_flows: int):
         t_del=full((P,), -1),
         block_until=full((N, T), 0),        # [dst, slice bucket]
         max_seq=full((num_flows,), -1),
-        reorder=full((), 0),
+        reorder=full(() if B == 1 else (B,), 0),
         occ=full((N * 2 * T,), 0),          # calendar-queue occupancy [N * 2T]
     )
 
@@ -311,13 +326,23 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     ``[V, Tr, N, D, K]``) both lookup sites read, at each node, the
     version ``j["vsel"][t - j["vsel_t0"]]`` selects for it: the version
     select of *fabric* slice ``t``, not of the ToR's local slice. The step
-    captures the packet count, so it serves one window."""
-    T, N, _ = j["conn"].shape
+    captures the packet count, so it serves one window.
+
+    A scenario sweep (``j["num_scenarios"]`` B > 1, built by
+    :func:`simulate_fleet`) stacks B scenarios on the packet and node axes
+    (``j["scen"]`` each packet's scenario): the node-indexed tensors have
+    ``NB = B·N`` rows, a packet's ToR ids are offset by ``b·N`` where they
+    index them, its flow id by ``b·F`` where it indexes ``max_seq``, and
+    the stats come per scenario (``[B]``, ``[B·N]``). With B = 1 none of
+    that adds an op: the solo step is the same program."""
+    T, NB, _ = j["conn"].shape
+    B = j.get("num_scenarios", 1)
+    N = NB // B
     P = j["src"].shape[0]
     dev = j["src"].device
     pid = torch.arange(P, dtype=_I32, device=dev)
     PG = P
-    NKEY = N * (N + 1)
+    NKEY = NB * (N + 1)
     T2 = 2 * T                       # calendar-queue ring: dep in (t, t + 2T)
     limit = min(cfg.slice_bytes, cfg.congestion_threshold)
     has_vers = "tf_next_v" in j
@@ -326,7 +351,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     has_ctrl = "phase_off" in j
     has_tele = telemetry is not None
     mt0 = j.get("mask_t0", 0)        # the masks' first absolute slice
-    spill = pid + N if has_tele else None   # counters' spill slots (count_)
+    spill = pid + NB if has_tele else None  # counters' spill slots (count_)
     # [W, NKEY] for the window's W slices with failure masks, else [T, NKEY]
     # for the cycle
     caps_rows = _build_caps(j["conn"], cfg, N, j.get("link_cap"),
@@ -340,6 +365,17 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
 
     size, dst, src = j["size"], j["dst"], j["src"]
     flow, seq, is_eleph = j["flow"], j["seq"], j["is_eleph"]
+    if B > 1:
+        # a packet's rows of the node axis and of max_seq; dst and the next
+        # hops compared with it stay its scenario's own
+        noff = j["scen"] * N
+        src_g, dst_g = src + noff, dst + noff
+        flow_g = flow + j["scen"] * j["scen_flows"]
+        # per-packet multipath: the lookup hashes i mod P / B (per-flow
+        # passes the flow hash, of the scenario's own flow ids)
+        hash_period = max(P // B, 1) if per_packet_mp else None
+    else:
+        noff, src_g, dst_g, flow_g, hash_period = None, src, dst, flow, None
     hor = max(0, min(cfg.offload_horizon, T2 - 1))
     hor_cols = torch.arange(hor, dtype=torch.int64, device=dev)
     # per-flow multipath hashes the flow id unsalted: one hash for the run;
@@ -348,7 +384,13 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     flow_hash = None if per_packet_mp else salted_hash(flow.to(torch.int64), 0)
 
     def cl(x):
-        return x.clamp(0, N - 1)
+        """A node id's row of the node axis, clamped into its scenario."""
+        return x.clamp(0, N - 1) if noff is None else x.clamp(0, N - 1) + noff
+
+    def total(x):
+        """``x.sum()`` over the packets as int32, per scenario in a
+        sweep."""
+        return (x.sum() if B == 1 else x.view(B, -1).sum(1)).to(_I32)
 
     def vbucket(loc, dep_abs):
         return cl(loc) * T2 + dep_abs % T2
@@ -380,7 +422,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     def on_switch_bytes(occ, t):
         """Per-node switch-resident bytes: the occupancy columns within the
         offload horizon (all columns without offloading)."""
-        occ2 = occ.view(N, T2)
+        occ2 = occ.view(NB, T2)
         if not cfg.offload:
             return occ2.sum(1).to(_I32)
         return occ2[:, (hor_cols + (t + 1)) % T2].sum(1).to(_I32)
@@ -402,8 +444,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         s["relook"] = s["relook"] | full
         s["dep"] = torch.where(full, t + 1, s["dep"])
         if cfg.pushback:
-            max_at_(s["block_until"], torch.where(full, dst, 0), dep_abs % T,
-                    full.to(_I32) * (t + T))
+            max_at_(s["block_until"], torch.where(full, dst_g, 0),
+                    dep_abs % T, full.to(_I32) * (t + T))
 
     def step(s, t: int):
         h = t if per_packet_mp else flow_hash
@@ -419,7 +461,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             # per-slice counters, emitted with the stats at the end; each
             # has P spill slots past its N counters (count_)
             for k in ("_tin", "_tdef", "_tdrop"):
-                s[k] = torch.zeros((N + P,), dtype=_I32, device=dev)
+                s[k] = torch.zeros((NB + P,), dtype=_I32, device=dev)
 
         # -- 0. calendar queues activating this slice leave the occupancy map
         act = (s["loc"] >= 0) & (s["dep"] == t)
@@ -429,46 +471,47 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         ready = (j["t_inject"] <= t) & (s["loc"] == NOT_INJECTED)
         if has_fail:
             # a down ToR's hosts cannot inject; the packets retry next slice
-            ready &= no_t[src]
+            ready &= no_t[src_g]
         redo = s["relook"] & (s["loc"] >= 0) & (s["dep"] == t)
         # one lookup serves both phases: injection reads the inj table at
         # src, deferred packets read the transit table at loc; no other
         # packet's result is used. A skewed ToR reads its local slice.
         sel = (~ready).to(_I32)
-        node = torch.where(ready, src, cl(s["loc"]))
+        node = torch.where(ready, src_g, cl(s["loc"]))
         looked_up = ready | redo
         nxt_i, off_i = time_flow_lookup(table, None, t % Tr, sel, node, dst,
                                         h, mask=looked_up, phase_off=po_t,
-                                        vsel=vs_t)
+                                        vsel=vs_t, hash_period=hash_period)
         off_i = _spread_offsets(off_i, looked_up, pid)
         nxt_r, off_r = nxt_i, off_i
         if cfg.flow_pausing:
             # elephants wait for the direct circuit their source ToR
             # believes is coming (its local clock)
             if has_ctrl:
-                tsrc = torch.remainder(t + po_t[src].to(torch.int64), T)
-                fd = j["first_direct"].reshape(-1)[(tsrc * N + src) * N + dst]
+                tsrc = torch.remainder(t + po_t[src_g].to(torch.int64), T)
+                fd = j["first_direct"].reshape(-1)[(tsrc * NB + src_g) * N
+                                                   + dst]
             else:
-                fd = j["first_direct"][t % T].reshape(-1)[src * N + dst]
+                fd = j["first_direct"][t % T].reshape(-1)[src_g * N + dst]
             use_direct = is_eleph & (fd >= 0)
             nxt_i = torch.where(use_direct, dst, nxt_i)
             off_i = torch.where(use_direct, fd, off_i)
         if cfg.pushback:
             # hosts hold traffic whose target slice bucket was pushed back
             bu = s["block_until"].view(-1)
-            blocked = bu[dst * T + (t + off_i) % T] > t
+            blocked = bu[dst_g * T + (t + off_i) % T] > t
         else:
             blocked = torch.zeros_like(ready)
         inject = ready & ~blocked
         if has_tele:
-            count_(s["_tin"], src, size, inject)
+            count_(s["_tin"], src_g, size, inject)
         s["loc"] = torch.where(inject, src, s["loc"])
         s["nxt"] = torch.where(inject, nxt_i, s["nxt"])
         s["dep"] = torch.where(inject, t + off_i, s["dep"])
         add_(s["occ"], vbucket(s["loc"], t + off_i), size,
              inject & (off_i > 0))
         enqueue_checks(s, inject, off_i, t)
-        n_blocked = (ready & blocked).sum().to(_I32)
+        n_blocked = total(ready & blocked)
         # deferred packets re-enter the pipeline with a fresh action
         s["nxt"] = torch.where(redo, nxt_r, s["nxt"])
         s["dep"] = torch.where(redo, t + off_r, s["dep"])
@@ -480,7 +523,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         used = torch.zeros((NKEY,), dtype=_I32, device=dev)
         buf_now = on_switch_bytes(s["occ"], t)
         backlog_min = torch.full((NKEY,), PG, dtype=_I32, device=dev)
-        rx_backlog_min = torch.full((N,), PG, dtype=_I32, device=dev)
+        rx_backlog_min = torch.full((NB,), PG, dtype=_I32, device=dev)
         resc_min = torch.full((NKEY,), PG, dtype=_I32, device=dev)
         if has_tele:
             s["_thwm"] = buf_now.clone()   # high water, maxed per hop
@@ -506,7 +549,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             if has_fail:
                 # the electrical fabric cannot terminate at a down ToR;
                 # dead optical circuits are already capacity-zero
-                want &= ~((nxt == N) & ~no_t[dst])
+                want &= ~((nxt == N) & ~no_t[dst_g])
             if has_ctrl:
                 # a ToR whose residual skew exceeds the guard band misses
                 # its optical transmit windows this slice (§7); the
@@ -517,7 +560,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                 need_buf = want & (nxt < N) & (nxt != dst)
                 room = (cfg.switch_buffer - buf_now).clamp(min=0).to(_I32)
                 adm_rx, _ = admission_admit(cl(nxt), size, need_buf, room,
-                                            num_keys=N)
+                                            num_keys=NB)
                 rej_rx = need_buf & ~adm_rx
                 min_at_(rx_backlog_min, torch.where(rej_rx, cl(nxt), 0),
                         torch.where(rej_rx, pid, PG))
@@ -544,10 +587,10 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             # the electrical fabric delivers with a one-slice transit delay
             s["t_del"] = torch.where(at_dst, is_elec.to(_I32) + t, s["t_del"])
             # reorder accounting against the flows' delivered high water
-            prev = s["max_seq"][flow]
-            s["reorder"] = s["reorder"] + (at_dst & (seq < prev)).sum().to(_I32)
+            prev = s["max_seq"][flow_g]
+            s["reorder"] = s["reorder"] + total(at_dst & (seq < prev))
             s["max_seq"].scatter_reduce_(
-                0, torch.where(at_dst, flow, 0).to(torch.int64),
+                0, torch.where(at_dst, flow_g, 0).to(torch.int64),
                 torch.where(at_dst, seq, -1), "amax", include_self=True)
             s["loc"] = torch.where(at_dst, DELIVERED, newloc)
             s["nhops"] = s["nhops"] + admitted.to(_I32)
@@ -556,7 +599,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             node_t = cl(s["loc"])
             nxt_t, off_t = time_flow_lookup(table, None, t % Tr, 1, node_t,
                                             dst, h, mask=in_transit,
-                                            phase_off=po_t, vsel=vs_t)
+                                            phase_off=po_t, vsel=vs_t,
+                                            hash_period=hash_period)
             off_t = _spread_offsets(off_t, in_transit, pid)
             s["nxt"] = torch.where(in_transit, nxt_t, s["nxt"])
             s["dep"] = torch.where(in_transit, t + off_t, s["dep"])
@@ -565,7 +609,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             add_(buf_now, node_t, size, in_transit)
             overflow = in_transit & (buf_now[node_t] > cfg.switch_buffer)
             if cfg.pushback:
-                max_at_(s["block_until"], torch.where(overflow, dst, 0),
+                max_at_(s["block_until"], torch.where(overflow, dst_g, 0),
                         s["dep"] % T, overflow.to(_I32) * (t + T))
             if has_tele:
                 torch.maximum(s["_thwm"], buf_now, out=s["_thwm"])
@@ -578,7 +622,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
 
         # -- 4. packets that missed their slice ------------------------------
         missed = (s["loc"] >= 0) & (s["dep"] == t)
-        miss_cnt = missed.sum().to(_I32)
+        miss_cnt = total(missed)
         bump = t + 1 if cfg.cc_detect else t + T  # paused a cycle (§5.2)
         if cfg.cc_detect:
             s["relook"] = s["relook"] | missed
@@ -587,18 +631,18 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             count_(s["_tdef"], cl(s["loc"]), size, missed)
         s["dep"] = torch.where(missed, bump, s["dep"])
         if cfg.pushback:
-            max_at_(s["block_until"], dst, torch.full_like(dst, t % T),
+            max_at_(s["block_until"], dst_g, torch.full_like(dst, t % T),
                     missed.to(_I32) * (t + T))
 
         # -- 5. per-slice stats (row sums of the occupancy map) --------------
         on_sw = on_switch_bytes(s["occ"], t)
         if cfg.offload:
-            off_sw = s["occ"].view(N, T2).sum(1).to(_I32) - on_sw
+            off_sw = s["occ"].view(NB, T2).sum(1).to(_I32) - on_sw
         else:
             off_sw = torch.zeros_like(on_sw)
         stats = dict(
-            delivered_bytes=torch.where(s["t_del"] == t, size, 0).sum().to(_I32),
-            dropped=(s["loc"] == DROPPED).sum().to(_I32),
+            delivered_bytes=total(torch.where(s["t_del"] == t, size, 0)),
+            dropped=total(s["loc"] == DROPPED),
             buf_bytes=on_sw, offl_bytes=off_sw,
             blocked_inj=n_blocked, slice_miss=miss_cnt,
         )
@@ -608,11 +652,11 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             # rows and the latency histogram come from the final state
             # (_tele_delivery_rows)
             stats.update(
-                tele_injected=s["_tin"][:N], tele_deferred=s["_tdef"][:N],
-                tele_dropped=s["_tdrop"][:N],
+                tele_injected=s["_tin"][:NB], tele_deferred=s["_tdef"][:NB],
+                tele_dropped=s["_tdrop"][:NB],
                 tele_qhwm=torch.maximum(s["_thwm"], on_sw),
-                tele_util_used=used.view(N, N + 1)[:, :N].sum(1).to(_I32),
-                tele_util_cap=caps.view(N, N + 1)[:, :N].sum(1).to(_I32))
+                tele_util_used=used.view(NB, N + 1)[:, :N].sum(1).to(_I32),
+                tele_util_cap=caps.view(NB, N + 1)[:, :N].sum(1).to(_I32))
         return stats
 
     return step
@@ -633,12 +677,16 @@ def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
     ``t_del`` is written once, so one scatter over the packets equals
     accumulating ``t_del == t`` rows slice by slice. A delivery outside
     ``[t0, t0 + num_slices)`` (in an earlier window, or an electrical one
-    landing after the window) scatters nothing."""
-    N = j["conn"].shape[1]
+    landing after the window) scatters nothing. In a scenario sweep the
+    rows are ``[S, B·N]`` and the histogram ``[S, B·buckets]``, scenario
+    by scenario."""
+    NB = j["conn"].shape[1]
+    B = j.get("num_scenarios", 1)
+    N = NB // B
+    nbk = telemetry.num_buckets
     dev = final["t_del"].device
-    rows = torch.zeros((num_slices, N), dtype=_I32, device=dev)
-    hist = torch.zeros((num_slices, telemetry.num_buckets), dtype=_I32,
-                       device=dev)
+    rows = torch.zeros((num_slices, NB), dtype=_I32, device=dev)
+    hist = torch.zeros((num_slices, B * nbk), dtype=_I32, device=dev)
     if num_slices == 0:
         return rows, hist
     t_del = final["t_del"]
@@ -646,14 +694,18 @@ def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
     ok = (rel >= 0) & (rel < num_slices)
     relc = rel.clamp(0, num_slices - 1).to(torch.int64)
     dst = j["dst"].clamp(0, N - 1).to(torch.int64)
-    rows.view(-1).index_add_(0, relc * N + dst, torch.where(ok, j["size"], 0))
+    if B > 1:
+        dst = dst + j["scen"] * N
+    rows.view(-1).index_add_(0, relc * NB + dst,
+                             torch.where(ok, j["size"], 0))
     # bucket i counts latencies in (edges[i-1], edges[i]]; the last is
     # overflow
     edges = torch.tensor(telemetry.lat_edges, dtype=_I32, device=dev)
     lat = (t_del - j["t_inject"]).clamp(min=0)
     bucket = torch.searchsorted(edges, lat, right=False)
-    hist.view(-1).index_add_(0, relc * telemetry.num_buckets + bucket,
-                             ok.to(_I32))
+    if B > 1:
+        bucket = bucket + j["scen"] * nbk
+    hist.view(-1).index_add_(0, relc * (B * nbk) + bucket, ok.to(_I32))
     return rows, hist
 
 
@@ -665,9 +717,11 @@ def _window_out(final, ys: list, j, telemetry: TelemetryConfig | None,
     rows and latency histogram from the packet state at the window's
     end."""
     N = j["conn"].shape[1]
+    B = j.get("num_scenarios", 1)
     dev = final["loc"].device
     out = {}
-    shapes = dict(_STAT_SHAPES)
+    shapes = {k: (B,) if v == () and B > 1 else v
+              for k, v in _STAT_SHAPES.items()}
     if telemetry is not None:
         shapes.update(dict.fromkeys(_TELE_STEP_KEYS))
         out["tele_delivered"], out["tele_lat_hist"] = _tele_delivery_rows(
@@ -883,10 +937,8 @@ def step_slices(fs: FabricState, num_slices: int, failures=None,
     return fs
 
 
-def finalize(fs: FabricState) -> SimResult:
-    """The :class:`SimResult` of the windows run so far, as the one-shot
-    :func:`simulate` would return it. The run stays live, so this may be
-    called as a checkpoint between windows."""
+def _final_out(fs: FabricState) -> dict:
+    """The result fields of the windows run so far, host numpy."""
     chunks = fs.chunks or [_window_out(fs.state, [], fs.j, fs.telemetry, 0,
                                        fs.clock)]
     s = fs.state
@@ -895,6 +947,14 @@ def finalize(fs: FabricState) -> SimResult:
         ("nhops", s["nhops"]), ("reorder_cnt", s["reorder"]))}
     out.update({k: np.concatenate([c[k] for c in chunks])
                 for k in chunks[0]})
+    return out
+
+
+def finalize(fs: FabricState) -> SimResult:
+    """The :class:`SimResult` of the windows run so far, as the one-shot
+    :func:`simulate` would return it. The run stays live, so this may be
+    called as a checkpoint between windows."""
+    out = _final_out(fs)
     tele = counters_from_out(out, fs.telemetry)
     return SimResult(**out, telemetry=tele)
 
@@ -961,3 +1021,119 @@ def simulate_incremental(tables: FabricTables, wl: Workload,
         t1 = min(t0 + window, num_slices)
         step_slices(fs, t1 - t0, *_mask_window(failures, control, t0, t1))
     return finalize(fs)
+
+
+# ---------------------------------------------------------------------------
+# scenario sweeps: B scenarios through one step a slice
+# ---------------------------------------------------------------------------
+
+def _fleet_arrays(tabs, wls, failures, control, num_flows: int,
+                  num_slices: int, dev) -> dict:
+    """The step's inputs for a scenario sweep, scenario-major (see
+    :func:`_make_step`): each scenario's tensors as :func:`simulate` builds
+    them (masks checked against ``num_slices``), its packets a block of the
+    packet axis and its rows a block of every node axis."""
+    B, P = len(wls), wls[0].num_packets
+    tab = {}            # a table set shared by scenarios is converted once
+    per = []
+    for b, (t, w) in enumerate(zip(tabs, wls)):
+        if id(t) not in tab:
+            tab[id(t)] = _table_arrays(t, dev)
+        jb = tab[id(t)] | _packet_arrays(w, dev)
+        _add_masks(jb, None if failures is None else failures[b],
+                   None if control is None else control[b], num_slices)
+        per.append(jb)
+    packet_keys = {f.name for f in dataclasses.fields(Workload)}
+    j = {}
+    for k in per[0]:
+        xs = [jb[k] for jb in per]
+        if k in packet_keys:
+            j[k] = torch.cat(xs)
+        else:                           # [R, N, ...] -> [R, B·N, ...]
+            x = torch.stack(xs, dim=1)
+            j[k] = x.reshape(x.shape[0], -1, *x.shape[3:]).contiguous()
+    j["num_scenarios"], j["scen_flows"] = B, num_flows
+    j["scen"] = torch.arange(B, dtype=_I32, device=dev).repeat_interleave(P)
+    return j
+
+
+def _scenario_out(out: dict, b: int, B: int) -> dict:
+    """Scenario ``b``'s fields of a sweep's result fields: its block of
+    every packet, node and histogram axis, its column of every per-slice
+    count."""
+    res = {}
+    for k, v in out.items():
+        if k == "reorder_cnt":                    # [B]
+            res[k] = np.array(v.reshape(-1)[b], dtype=v.dtype)
+        elif k in ("t_deliver", "loc_final", "nhops"):    # [B·P]
+            res[k] = v.reshape(B, -1)[b].copy()
+        elif _STAT_SHAPES.get(k) == ():           # [S, B] counts
+            res[k] = v.reshape(-1, B)[:, b].copy()
+        else:                                     # [S, B·X] rows
+            res[k] = v.reshape(v.shape[0], B, -1)[:, b].copy()
+    return res
+
+
+def simulate_fleet(tables, wls, cfg: FabricConfig, num_slices: int,
+                   failures=None, control=None,
+                   telemetry: TelemetryConfig | None = None,
+                   device=None) -> list[SimResult]:
+    """Run a scenario sweep through one step a slice (the reference's
+    ``simulate_fleet``): every launch of a slice carries all B scenarios,
+    so a slice costs about the launches of one scenario. Each result equals
+    :func:`simulate` of its scenario in every field and counter.
+
+    Args:
+        tables: one :class:`FabricTables` shared by every scenario, or a
+            list (one per scenario) whose tables share shapes and
+            multipath mode.
+        wls: list of :class:`Workload`, all with the same packet count
+            (``num_flows`` is the largest over the scenarios).
+        cfg, num_slices, telemetry, device: as :func:`simulate`.
+        failures / control: ``None``, or one mask set per scenario (no
+            ``None`` entries: presence adds branches to the one step, so it
+            must agree across the sweep; pass ``FailureMasks.healthy`` /
+            ``ControlMasks.perfect`` for clean scenarios).
+
+    Returns one :class:`SimResult` per scenario, in order.
+    """
+    dev = resolve_device(device)
+    B = len(wls)
+    if B == 0:
+        return []
+    tabs = list(tables) if isinstance(tables, (list, tuple)) else [tables] * B
+    if len(tabs) != B:
+        raise ValueError(f"{len(tabs)} tables for {B} workloads")
+    if any(t.multipath != tabs[0].multipath for t in tabs):
+        raise ValueError("fleet tables must share a multipath mode (it is a "
+                         "static branch)")
+    for k in _TABLE_FIELDS:
+        shapes = sorted({np.shape(getattr(t, k)) for t in tabs})
+        if len(shapes) != 1:
+            raise ValueError(f"fleet tables must share shapes, got {shapes} "
+                             f"for {k}")
+    counts = {w.num_packets for w in wls}
+    if len(counts) != 1:
+        raise ValueError(f"fleet workloads must share a packet count, got "
+                         f"{sorted(counts)}")
+    for name, masks in (("failures", failures), ("control", control)):
+        if masks is not None and (len(masks) != B
+                                  or any(m is None for m in masks)):
+            raise ValueError(
+                f"{name} must be one mask set per scenario (mask presence "
+                "is a static branch; use FailureMasks.healthy / "
+                "ControlMasks.perfect for clean scenarios)")
+    num_flows = max(_num_flows(w) for w in wls)
+    j = _fleet_arrays(tabs, wls, failures, control, num_flows, num_slices,
+                      dev)
+    fs = FabricState(j=j, state=_init_state(j, B * num_flows), cfg=cfg,
+                     telemetry=telemetry,
+                     per_packet_mp=tabs[0].multipath == "packet",
+                     num_flows=B * num_flows)
+    out = _final_out(step_slices(fs, num_slices))
+    results = []
+    for b in range(B):
+        ob = _scenario_out(out, b, B)
+        tele = counters_from_out(ob, telemetry)
+        results.append(SimResult(**ob, telemetry=tele))
+    return results

@@ -1,9 +1,12 @@
 """Topology APIs (paper §4.2, Table 1 "Topology" rows), PyTorch port.
 
-A copy of ``repro.core.topology`` without its networkx schedulers
-(``edmonds``, ``bvn``, ``jupiter``, ``sorn``). The control plane is
-deliberately host-side Python/numpy (the paper's optical controller is a
-Python program); only the data plane (``fabric.py``) runs on the device.
+A copy of ``repro.core.topology``. Its traffic-matrix schedulers
+(``edmonds``, ``bvn``, ``jupiter``, ``sorn``) take their matchings from
+:mod:`.matching` in place of networkx; ``bvn`` takes the rows of its
+bipartite matchings in ascending order, so its schedule does not depend on
+the interpreter's hash seed. The control plane is deliberately host-side
+Python/numpy (the paper's optical controller is a Python program); only
+the data plane (``fabric.py``) runs on the device.
 
 Canonical schedule representation
 ---------------------------------
@@ -24,11 +27,17 @@ from typing import Sequence
 
 import numpy as np
 
+from .matching import hopcroft_karp, max_weight_matching
+
 __all__ = [
     "Circuit",
     "Schedule",
     "connect",
     "round_robin",
+    "edmonds",
+    "bvn",
+    "jupiter",
+    "sorn",
     "uniform_mesh",
     "deploy_topo_check",
     "circuits_to_conn",
@@ -207,9 +216,81 @@ def _near_equal_factors(n: int, d: int) -> tuple[int, ...]:
 
 
 # ---------------------------------------------------------------------------
-# TA topologies. The traffic-matrix schedulers of the reference (edmonds,
-# bvn, jupiter, sorn) need networkx and are not ported yet.
+# TA circuit-scheduling algorithms (paper: edmonds(TM), BvN(TM), jupiter(TM))
 # ---------------------------------------------------------------------------
+
+def edmonds(tm: np.ndarray, n_uplinks: int = 1, slice_us: float = 1e5) -> Schedule:
+    """c-Through-style max-weight matching on the traffic matrix (Edmonds'
+    blossom algorithm, :func:`.matching.max_weight_matching`). Produces one
+    topology (num_slices=1). Each matched pair gets a bidirectional circuit
+    (both directions)."""
+    n = tm.shape[0]
+    conn = np.full((1, n, n_uplinks), -1, dtype=np.int32)
+    sym = tm + tm.T
+    for k in range(n_uplinks):
+        edges = [(i, j, float(sym[i, j])) for i in range(n)
+                 for j in range(i + 1, n) if sym[i, j] > 0]
+        mate = max_weight_matching(n, edges, maxcardinality=True)
+        for i in range(n):
+            j = int(mate[i])
+            if j > i:
+                conn[0, i, k] = j
+                conn[0, j, k] = i
+                sym[i, j] = sym[j, i] = 0  # next uplink serves remaining demand
+    return Schedule(conn, slice_us=slice_us)
+
+
+def bvn(tm: np.ndarray, max_perms: int = 32, slice_us: float = 100.0,
+        reconf_us: float = 10.0, eps: float = 1e-9) -> Schedule:
+    """Birkhoff-von-Neumann decomposition (Mordia): scale TM towards doubly
+    stochastic, peel off perfect matchings (Hopcroft-Karp on the positive
+    support), and emit each matching for a number of slices proportional to
+    its weight."""
+    n = tm.shape[0]
+    m = tm.astype(np.float64).copy()
+    np.fill_diagonal(m, 0.0)
+    if m.sum() <= 0:
+        m = np.ones((n, n)) - np.eye(n)
+    # Sinkhorn to (approximately) doubly stochastic.
+    for _ in range(200):
+        m /= np.maximum(m.sum(axis=1, keepdims=True), eps)
+        m /= np.maximum(m.sum(axis=0, keepdims=True), eps)
+    perms, weights = [], []
+    residual = m.copy()
+    for _ in range(max_perms):
+        support = residual > eps
+        if not support.any():
+            break
+        perm = _perfect_matching(support)
+        if perm is None:
+            # pad support with smallest-residual edges to restore Hall's cond.
+            residual = residual + eps * (~np.eye(n, dtype=bool))
+            perm = _perfect_matching(residual > 0)
+            if perm is None:
+                break
+        w = float(residual[np.arange(n), perm].min())
+        perms.append(perm)
+        weights.append(max(w, eps))
+        residual[np.arange(n), perm] -= w
+    weights = np.asarray(weights)
+    n_slices = np.maximum(1, np.round(weights / weights.sum() * max_perms)).astype(int)
+    conn = np.full((int(n_slices.sum()), n, 1), -1, dtype=np.int32)
+    t = 0
+    for perm, reps in zip(perms, n_slices):
+        for _ in range(reps):
+            conn[t, :, 0] = perm
+            t += 1
+    return Schedule(conn[:t], slice_us=slice_us, reconf_us=reconf_us)
+
+
+def _perfect_matching(support: np.ndarray) -> np.ndarray | None:
+    """Perfect matching on a bipartite support matrix (rows->cols), or None."""
+    match = hopcroft_karp(support)
+    if (match < 0).any():
+        return None
+    return match.astype(np.int32)
+
+
 
 def uniform_mesh(n_nodes: int, n_uplinks: int = 1, slice_us: float = 1e5) -> Schedule:
     """Jupiter's default topology: a uniform (round-robin offset) mesh held
@@ -221,3 +302,60 @@ def uniform_mesh(n_nodes: int, n_uplinks: int = 1, slice_us: float = 1e5) -> Sch
         conn[0, :, k] = (ids + off) % n_nodes
     return Schedule(conn, slice_us=slice_us)
 
+
+def jupiter(tm: np.ndarray | None, prev: Schedule | None = None,
+            n_nodes: int | None = None, n_uplinks: int = 1,
+            max_moves: int = 8, slice_us: float = 1e5) -> Schedule:
+    """Jupiter-style gradual topology evolution: start from the uniform mesh;
+    each reconfiguration moves at most ``max_moves`` circuits toward the
+    demand-optimal matching (computed greedily from the TM), keeping the
+    fabric usable throughout (paper §4.2 / Fig 5b)."""
+    if prev is None:
+        assert n_nodes is not None
+        prev = uniform_mesh(n_nodes, n_uplinks, slice_us)
+    if tm is None or np.all(tm == 0):
+        return prev
+    n = prev.num_nodes
+    U = prev.num_uplinks
+    want = edmonds(tm, n_uplinks=U, slice_us=slice_us)
+    conn = prev.conn.copy()
+    rx = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        for k in range(U):
+            if conn[0, i, k] >= 0:
+                rx[conn[0, i, k]] += 1
+    moves = 0
+    for k in range(U):
+        for i in range(n):
+            if moves >= max_moves:
+                break
+            tgt = want.conn[0, i, k]
+            cur = conn[0, i, k]
+            # keep the fabric feasible throughout: respect rx-degree <= U
+            if tgt >= 0 and tgt != i and cur != tgt and rx[tgt] < U:
+                if cur >= 0:
+                    rx[cur] -= 1
+                conn[0, i, k] = tgt
+                rx[tgt] += 1
+                moves += 1
+    return Schedule(conn, slice_us=slice_us)
+
+
+def sorn(tm: np.ndarray, base: Schedule, hot_frac: float = 0.25) -> Schedule:
+    """Semi-oblivious round-robin (paper §4.3, Fig 5c): skew the round-robin
+    schedule so hotspot node pairs get extra slices (denser connections)
+    while cold pairs are thinned."""
+    T, N, U = base.conn.shape
+    conn = base.conn.copy()
+    flat = tm.flatten()
+    k = max(1, int(hot_frac * N))
+    hot_pairs = np.argsort(flat)[::-1][: k]
+    extra = np.full((k, N, U), -1, dtype=np.int32)
+    for s, p in enumerate(hot_pairs):
+        i, j = divmod(int(p), N)
+        if i == j:
+            continue
+        extra[s, i, 0] = j
+        extra[s, j, 0] = i
+    return Schedule(np.concatenate([conn, extra], axis=0),
+                    slice_us=base.slice_us, reconf_us=base.reconf_us)

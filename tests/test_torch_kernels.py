@@ -239,6 +239,73 @@ def test_lookup_in_kernel_hash(t):
     _assert_equal(qd, pd)
 
 
+@pytest.mark.parametrize("B,Ps,t", [(1, 1000, 213), (2, 501, 5),
+                                    (8, 129, 1 << 16), (3, 1, 7)])
+def test_lookup_per_scenario_hash_index(B, Ps, t):
+    """``hash_period=Ps`` with the in-kernel hash: packet ``b·Ps + p`` of
+    a scenario sweep hashes ``p``, its index within its scenario. Over the
+    B·N rows of stacked per-scenario tables (offsets drawn per row, a
+    mask), the lookup equals the Pallas kernel (interpret mode) fed the
+    reference's hash of each scenario's own indices, scenario by scenario,
+    and equals B solo calls, one a scenario."""
+    rng = np.random.default_rng(B * 1000 + Ps)
+    n, k, Tr, tm = 9, 4, 3, 1
+    tn, td = _random_tables(rng, (2, Tr, B), n, k)     # [2, Tr, B, N, N, K]
+    table = torch.stack([_t32(tn), _t32(td)], dim=-2)  # [.., B, N, N, 2, K]
+    table = table.reshape(2, Tr, B * n, n, 2, k).contiguous()
+    P = B * Ps
+    scen = np.repeat(np.arange(B), Ps)
+    node = rng.integers(0, n, P).astype(np.int32)
+    dst = rng.integers(0, n, P).astype(np.int32)
+    sel = rng.integers(0, 2, P).astype(np.int32)
+    po = rng.integers(-2 * Tr, 2 * Tr + 1, B * n).astype(np.int32)
+    mask = rng.random(P) < 0.7
+    got = Q_tfl.time_flow_lookup(table, None, tm, _t32(sel),
+                                 _t32(node + scen * n), _t32(dst), t,
+                                 mask=torch.tensor(mask),
+                                 phase_off=_t32(po), hash_period=Ps)
+    h = np.asarray(ref_hash32(jnp.arange(Ps, dtype=jnp.uint32)
+                              + jnp.uint32(t) * jnp.uint32(0x9E3779B9)))
+    for b in range(B):
+        rows = slice(b * Ps, (b + 1) * Ps)
+        local = (tm + po[b * n:(b + 1) * n]) % Tr          # floor modulo
+        s, nd = sel[rows], node[rows]
+        want_n = np.empty(Ps, np.int32)
+        want_d = np.empty(Ps, np.int32)
+        for sv in (0, 1):
+            for tl in range(Tr):
+                pick = (s == sv) & (local[nd] == tl)
+                if pick.any():
+                    pn, pd = R_ops.time_flow_lookup(*[jnp.asarray(x) for x in (
+                        tn[sv, tl, b], td[sv, tl, b], nd[pick], dst[rows][pick],
+                        h[pick])], bp=256)
+                    want_n[pick], want_d[pick] = pn, pd
+        m = mask[rows]
+        _assert_equal(got[0][rows], np.where(m, want_n, -1))
+        _assert_equal(got[1][rows], np.where(m, want_d, 0))
+        solo = Q_tfl.time_flow_lookup(
+            table[:, :, b * n:(b + 1) * n].contiguous(), None, tm,
+            _t32(s), _t32(nd), _t32(dst[rows]), t, mask=torch.tensor(m),
+            phase_off=_t32(po[b * n:(b + 1) * n]))
+        _assert_equal(got[0][rows], solo[0])
+        _assert_equal(got[1][rows], solo[1])
+
+
+def test_lookup_validates_hash_period():
+    """A hash period goes with the in-kernel hash and is positive: the
+    kernel's checks and the plain version (the CPU path) refuse the same
+    arguments."""
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    args = (z(2, 3, 4, 4, 2, 2), None, 1, z(5), z(5), z(5))
+    for h, hp in ((z(5), 5), (7, 0)):
+        for fn in (Q_tfl._check, Q_tfl.time_flow_lookup_plain,
+                   Q_tfl.time_flow_lookup):
+            with pytest.raises(ValueError, match="hash_period"):
+                fn(*args, h, hash_period=hp)
+    Q_tfl._check(*args, 7, hash_period=2)
+    Q_tfl.time_flow_lookup(*args, 7, hash_period=2)
+
+
 @pytest.mark.parametrize("K,packed,want", [
     (1, True, 1), (2, True, 2), (3, True, 1), (4, True, 4), (6, True, 2),
     (8, True, 4), (12, True, 1), (1, False, 1), (2, False, 2),

@@ -34,7 +34,7 @@ from repro_torch.kernels import rg_lru as Q_rl  # noqa: E402
 from repro_torch.kernels import time_flow_lookup as Q_tfl  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro", "networkx"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "networkx", "benchmarks"}
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "chip_fault_probe.py",
                  ROOT / "chip_decode_probe.py"]
@@ -146,8 +146,9 @@ def test_still_unported_raise_or_are_absent():
     """What is ported works and what stays unported is absent, never a
     stub: the reconfigure loop and the device compiler, also behind
     ``compile_impl="jnp"`` and ``repair(impl="jnp")`` (ROADMAP Queue 1
-    item 6), are present and run; the sharded and fleet entry points
-    (item 9) are absent."""
+    item 6), and the scenario sweep ``simulate_fleet`` (item 9), are
+    present and run; the sharded entry point and ``reconfigure_fleet``
+    (item 9's rest) are absent."""
     sched = Q.round_robin(6, 1)
     host = Q.vlb(sched)
     dev = Q.vlb(sched, compile_impl="jnp", device="cpu")
@@ -165,8 +166,11 @@ def test_still_unported_raise_or_are_absent():
     assert isinstance(res, Q.ReconfigResult)
     assert res.delivered_bytes.shape == (4,)
     assert res.epoch_conn.shape == (2, 6, 6, 1)    # 5 base + 1 hot slice
+    fleet = Q.simulate_fleet(tables, [wl, wl], Q.FabricConfig(), 4,
+                             device="cpu")
+    assert len(fleet) == 2 and fleet[1].t_deliver.shape == wl.src.shape
     from repro_torch.core import fabric, reconfigure
-    for name in ("simulate_sharded", "simulate_fleet", "reconfigure_fleet"):
+    for name in ("simulate_sharded", "reconfigure_fleet"):
         assert not hasattr(fabric, name) and not hasattr(Q, name) \
             and not hasattr(reconfigure, name), name
 
