@@ -18,7 +18,9 @@ loop: its versioned installs against the host replay of their versions
 and against the CPU) and phase 21 (the seven architectures' deployments
 against the reference's digests and their runs against the CPU: "phase
 21a"; the scenario sweep's members against their solo runs: "phase 21c")
-catch a wrong kernel or a wrong step. For the unchanged tree and for each
+and phase 22 (the reconfigure loop's sweep against its solo runs: "phase
+22a"; the sharded runs against the one-device run: "phase 22b") catch a
+wrong kernel or a wrong step. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -47,7 +49,8 @@ FAILURES = Path("src/repro_torch/core/failures.py")
 RECONF = Path("src/repro_torch/core/reconfigure.py")
 MATCHING = Path("src/repro_torch/core/matching.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
-          "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c")
+          "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c",
+          "phase 22a", "phase 22b")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -144,8 +147,8 @@ FAULTS = {
     # a window's masked capacities built from the schedule's slice 0, not
     # from the window's first slice
     "window capacities unshifted": (
-        FABRIC, 'j.get("node_ok"), mt0 if has_fail else 0)',
-        'j.get("node_ok"), 0)', ("phase 18",)),
+        FABRIC, 'j.get("node_ok"), mt0 if has_fail else 0,',
+        'j.get("node_ok"), 0,', ("phase 18",)),
     # a phased run that never swaps its tables in
     "phased swap skipped": (
         FAILURES, "            fs.j.update(fabric_mod._table_arrays(tables, "
@@ -168,8 +171,25 @@ FAULTS = {
     # the in-kernel hash of a scenario sweep takes each packet's index in
     # the launch, not in its scenario: scenario 0 still matches
     "lookup hashes the sweep's global packet index": (
-        TFL, "const int64_t ih = a.hp < a.P ? i % a.hp : i;",
-        "const int64_t ih = i;", ("phase 21c",)),
+        TFL, "const int64_t ih = a.hb + (a.hp < a.P ? i % a.hp : i);",
+        "const int64_t ih = a.hb + i;", ("phase 21c",)),
+    # a sharded run's lookup hashes each packet's index in its rank's
+    # block, not its global index: rank 0 still matches
+    "lookup hashes the shard-local packet index": (
+        TFL, "const int64_t ih = a.hb + (a.hp < a.P ? i % a.hp : i);",
+        "const int64_t ih = (a.hp < a.P ? i % a.hp : i);",
+        ("phase 2", "phase 22b")),
+    # a sharded run's admission is fed the capacities without the earlier
+    # ranks' wanted bytes taken off: every rank admits as if it were first
+    "sharded admission without the earlier ranks' offsets": (
+        FABRIC, "cap_left() - earlier_offsets(buf, sh.rank)", "cap_left()",
+        ("phase 22b",)),
+    # the sweep of the reconfigure loop gives every scenario scenario 0's
+    # version select
+    "reconfigure sweep gives scenario 0's vsel to every scenario": (
+        RECONF, "vsel = np.concatenate(vsels, axis=1)",
+        "vsel = np.concatenate([vsels[0]] * len(vsels), axis=1)",
+        ("phase 22a",)),
     # bvn's bipartite matching takes the rows in reverse order, so its
     # perfect matchings, and Mordia's schedule, are not the reference's
     "bvn's Hopcroft-Karp iterates rows in reverse": (
@@ -239,7 +259,9 @@ for phase, check in (("phase 18", lambda: cs.check_service(
                          dev, profile=False)),
                      ("phase 21a", lambda: cs.check_architectures(dev)),
                      ("phase 21c", lambda: cs.check_fleet(
-                         dev, profile=False))):
+                         dev, profile=False)),
+                     ("phase 22a", lambda: cs.check_reconfigure_fleet(dev)),
+                     ("phase 22b", lambda: cs.check_sharded(dev))):
     if phase in phases:
         try:
             print(phase, check())

@@ -27,7 +27,11 @@ Phases, each fatal on failure:
    tables of every route; and with a scenario sweep's per-scenario hash
    index: B of 1, 2 and 8 scenarios' tables on the node axis, 16,411
    packets a scenario (not a multiple of the block), both sites, two
-   masks, offsets at B = 8.
+   masks, offsets at B = 8; on random tables of the main path's width
+   with 0 to 4 valid slots an entry (so that a wrong hash index picks
+   other slots), the same index beside the version axis (4 scenarios'
+   versioned tables, a version and an offset a node row) and a sharded
+   run's global hash index (the last rank's block of 5 and of 2 ranks).
 3. Time each kernel and its plain version with CUDA events (median of
    repeats, each repeat a CUDA graph of back-to-back calls), and each
    kernel's launch floor (the same call on one packet); split admission's
@@ -38,7 +42,8 @@ Phases, each fatal on failure:
    them, in turns; and with offsets and a table version a node, at V = 2
    and 3, beside the same calls on the unversioned table, in turns; and
    with an 8-scenario sweep's per-scenario hash index beside the same
-   calls without it, in turns.
+   calls without it, in turns; and with the last of 5 ranks' global hash
+   index beside the same calls without it, in turns.
 4. Run the main path at the paper's 108-ToR scale through
    ``OpenOpticsNet(..., device="cuda")``: ``round_robin(108, 1)`` + ``vlb``,
    an RPC workload of ~131k packets, 214 slices (two schedule cycles), once
@@ -184,6 +189,23 @@ Phases, each fatal on failure:
    the eight-seed sweep (within 10% of phase 6's kernels at one scenario),
    peak device memory.
 
+22. (a) ``reconfigure_fleet`` at 108 ToRs on phase 20's net, 12 epochs of
+   16 slices, 131,072 packets a scenario: four seeds of 4 hot slices of
+   ``hoho`` by hotswap under phase 20's control trace (each scenario's
+   install loss from its own seed), and three random failure and control
+   traces of one workload with ``heal`` and 2PC; every member equal to its
+   solo ``reconfigure`` on the card in every field and counter, each
+   sweep's launches one run's; scenario-slices/s beside the solo runs, an
+   epoch's wall split (measure and schedule, the B recompiles, the
+   slices), peak device memory. (b) ``simulate_sharded`` at 108 ToRs on
+   phase 4's workload (214 slices) with phase 17's masks and telemetry, on
+   ``vlb`` and on ``ucmp`` (several slots an entry): 1 rank over NCCL, 2,
+   4 and 5 ranks sharing the card over gloo (4 and 5 over the first 64
+   slices), each equal to the one-device run of its length in every field
+   and counter, ``check_sharding`` clean, both fabric
+   kernels launched one run's count on every rank; slices/s per rank
+   count, exchanges and bytes exchanged a slice.
+
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
 or any phase fails.
@@ -326,7 +348,7 @@ def check_lookup(dev, table):
         return sum(r[0] for r in res), max(r[1] for r in res)
 
     def new_case(tbl, P, seed, density=None, t=None, offsets=False,
-                 per_packet=True, vsel=None, hp=None):
+                 per_packet=True, vsel=None, hp=None, hb=None):
         """The port's form on ``tbl`` (packed, or a (next, dep) pair):
         a mask of the given density (None: no mask), the in-kernel hash of
         slice t (None: a hash vector), per-node slice offsets drawn from
@@ -335,8 +357,9 @@ def check_lookup(dev, table):
         per node (vsel: None, "uniform" the last version at every node,
         "mixed" drawn per node, "clamped" drawn from [-1, V] so some
         clamp), a scenario sweep's hash period (hp: packet i hashes i mod
-        hp); the plain version gets the hash vector ``salted_hash`` makes
-        for t (of each index mod hp)."""
+        hp), a shard's hash base (hb: packet i hashes hb + i, its global
+        index); the plain version gets the hash vector ``salted_hash``
+        makes for t (of each index mod hp, plus hb)."""
         rng = np.random.default_rng(seed)
         tn, td = (tbl, None) if isinstance(tbl, torch.Tensor) else tbl
         V, Tr, N, D, _ = tfl.table_dims(tn, td)
@@ -364,10 +387,11 @@ def check_lookup(dev, table):
         else:
             hv = t
             pid = torch.arange(P, dtype=torch.int64, device=dev)
-            hv_plain = tfl.salted_hash(pid if hp is None else pid % hp, t)
+            pid = pid if hp is None else pid % hp
+            hv_plain = tfl.salted_hash(pid if hb is None else pid + hb, t)
         got = poisoned(lambda: tfl.time_flow_lookup(
             tn, td, tm, sel, node, dst, hv, mask=mask, phase_off=po,
-            vsel=vs, hash_period=hp))
+            vsel=vs, hash_period=hp, hash_base=hb))
         want = tfl.time_flow_lookup_plain(tn, td, tm, sel, node, dst,
                                           hv_plain, mask, phase_off=po,
                                           vsel=vs)
@@ -475,6 +499,38 @@ def check_lookup(dev, table):
                     dict(density=d, t=213, per_packet=per_packet,
                          hp=FLEET_HASH_PS, offsets=B == 8)))
         del ftab
+    # the new hash indices below run on random tables of the main path's
+    # width whose entries hold 0 to 4 valid slots: over vlb's one uplink an
+    # entry keeps one valid slot, and a wrong hash index picks nothing else
+    multi = t32(np.stack(lookup_tables(N_TORS, 4, lead=(2, 3), seed=77),
+                         axis=4))
+    # the sweep of the reconfigure loop (reconfigure_fleet): the
+    # per-scenario hash index beside the version axis, 4 scenarios'
+    # versioned tables on the node axis, a version and an offset a row
+    vtab = versioned_tables(multi)
+    ftab = torch.cat([vtab.roll(b, dims=2) for b in range(4)],
+                     dim=3).contiguous()
+    del vtab
+    for site, per_packet in (("fused", True), ("hop", False)):
+        for d in (0.5, 0.03):
+            new_cases.append((
+                f"sweep B=4 P={4 * FLEET_HASH_PS} per-scenario hash, V=3 "
+                f"vsel mixed, offsets, {site} site, mask {d}", ftab,
+                4 * FLEET_HASH_PS, dict(density=d, t=213,
+                                        per_packet=per_packet,
+                                        hp=FLEET_HASH_PS, vsel="mixed",
+                                        offsets=True)))
+    # a sharded run's global hash index (simulate_sharded): the last rank
+    # of 5 and of 2 over the main path's packets hashes r·L + i
+    for D in (5, 2):
+        L = -(-P_MAIN // D)
+        for site, per_packet in (("fused", True), ("hop", False)):
+            for d in (1.0, 0.03):
+                new_cases.append((
+                    f"shard {D - 1} of {D} P={L} global hash index, {site} "
+                    f"site, mask {d}", multi, L,
+                    dict(density=d, t=213, per_packet=per_packet,
+                         hb=(D - 1) * L, offsets=D == 5)))
     for i, (name, tbl, P, kw) in enumerate(new_cases):
         m, e = new_case(tbl, P, seed=200 + i, **kw)
         log(f"  lookup {name}: mismatches={m}")
@@ -2497,6 +2553,209 @@ def check_fleet(dev, phase6=None, profile: bool = True) -> dict:
     return out
 
 
+# -- phase 22: reconfigure_fleet and simulate_sharded ---------------------------
+RFLEET_SEEDS = 4          # (a) sweep 1: traffic seeds of phase 4's workload
+RFLEET_TRACES = 3         # (a) sweep 2: failure and control traces
+# (b) rank counts, backends and slices: one rank over NCCL, then ranks
+# sharing the card over gloo (5 divides neither 108 ToRs nor 131,072
+# packets); 4 and 5 ranks over the first 64 slices, for time (every fault
+# of phase 17 has started by slice 40)
+SHARD_RUNS = ((1, None, SLICES), (2, "gloo", SLICES), (4, "gloo", 64),
+              (5, "gloo", 64))
+
+
+def check_reconfigure_fleet(dev) -> dict:
+    """Phase 22(a): ``reconfigure_fleet`` at 108 ToRs on phase 20's net, 12
+    epochs of 16 slices, 131,072 packets a scenario. Sweep 1: four seeds of
+    phase 4's workload, 4 hot slices of ``hoho`` by hotswap under phase
+    20's control trace with install faults, each scenario's install loss
+    drawn from its own seed; sweep 2: one workload under three random
+    failure and control traces, with heal and 2PC. Every member equal to
+    its solo ``reconfigure`` on the card in every field, history array and
+    counter; each sweep's launches one run's; scenario-slices/s beside the
+    solo runs, an epoch's wall split (measure and schedule, the B
+    recompiles, the slices), peak device memory. Raises ``SystemExit`` on
+    a mismatch; returns the numbers."""
+    from repro_torch.core import (ReconfigConfig, compile_control,
+                                  compile_masks, random_control_trace,
+                                  random_trace, reconfigure,
+                                  reconfigure_fleet, round_robin, synthesize)
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import time_flow_lookup as tfl
+    sched = round_robin(N_TORS, 1)
+    net = reconf_net(sched)
+    cfg = net.fabric_cfg
+    slice_ns = SLICE_US * 1000.0
+    base = dict(epoch_slices=RECONF_E, num_epochs=RECONF_EPOCHS)
+    want = dict(tfl=RECONF_SLICES * (1 + cfg.hops_per_slice),
+                adm=RECONF_SLICES * cfg.hops_per_slice)
+    out = {}
+
+    def sweep(tag, rcfg, wls, failures=None, control=None):
+        B = len(wls)
+        solo, solo_wall = [], 0.0
+        for b, wl in enumerate(wls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo.append(reconfigure(
+                sched, wl, cfg, rcfg, device=dev,
+                failures=None if failures is None else failures[b],
+                control=None if control is None else control[b]))
+            solo_wall += time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tfl.launches = adm.launches = 0
+        with EpochClock() as clk:
+            t0 = time.perf_counter()
+            got = reconfigure_fleet(sched, wls, cfg, rcfg, failures=failures,
+                                    control=control, device=dev)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(tfl=tfl.launches, adm=adm.launches)
+        if launches != want:
+            raise SystemExit(f"phase 22(a) {tag}: launches {launches} (want "
+                             f"{want}: every launch all scenarios)")
+        for b in range(B):
+            bad = reconfig_diff(solo[b], got[b])
+            if bad is not None:
+                raise SystemExit(f"phase 22(a) {tag}: scenario {b} and its "
+                                 f"solo run differ in {bad}")
+        if all(np.array_equal(g.t_deliver, got[0].t_deliver)
+               for g in got[1:]):
+            raise SystemExit(f"phase 22(a) {tag}: the scenarios do not "
+                             "differ, so a mix-up between them cannot show")
+        n_comp = B * RECONF_EPOCHS
+        comp = sum(clk.compile_s[-n_comp:])
+        win = sum(clk.window_s)
+        boot = sum(clk.compile_s[:-n_comp])
+        out[tag] = dict(
+            scenarios=B, fleet_wall_s=wall, solo_wall_s=solo_wall,
+            fleet_scenario_slices_per_s=B * RECONF_SLICES / wall,
+            solo_scenario_slices_per_s=B * RECONF_SLICES / solo_wall,
+            epoch=dict(wall_ms=wall * 1e3 / RECONF_EPOCHS,
+                       measure_schedule_ms=(wall - comp - win - boot) * 1e3
+                       / RECONF_EPOCHS,
+                       recompiles_ms=comp * 1e3 / RECONF_EPOCHS,
+                       slices_ms=win * 1e3 / RECONF_EPOCHS),
+            boot_compile_ms=boot * 1e3,
+            peak_mib=peak / 2 ** 20, loop_peak_mib=(peak - held) / 2 ** 20,
+            launches=launches,
+            mixed_epochs=[int((g.install_ver != g.install_ver[:, :1])
+                              .any(axis=1).sum()) for g in got],
+            failed_links=[int(g.failed_links.sum()) for g in got],
+            install_lat=[g.install_lat.tolist() for g in got],
+            delivered=[float((g.t_deliver >= 0).mean()) for g in got])
+        return got
+
+    # 1. traffic seeds by hotswap under the control trace, each scenario's
+    # install loss from its own seed
+    wls = [synthesize("rpc", N_TORS, 64, slice_bytes=75_000, load=0.4,
+                      max_packets=P_MAIN, seed=s) for s in range(RFLEET_SEEDS)]
+    if {w.num_packets for w in wls} != {P_MAIN}:
+        raise SystemExit(f"phase 22(a): a seed's workload is not {P_MAIN} "
+                         "packets")
+    ctrls = [compile_control(net.control_trace, RECONF_SLICES, N_TORS,
+                             slice_ns=slice_ns, seed=s)
+             for s in range(RFLEET_SEEDS)]
+    sweep("seeds_hotswap", ReconfigConfig(**base, scheme="hoho", k_hot=4,
+                                          install="hotswap"), wls,
+          control=ctrls)
+    if not all(out["seeds_hotswap"]["mixed_epochs"]):
+        raise SystemExit("phase 22(a): a hotswap scenario never ended an "
+                         "epoch with mixed versions")
+    del wls, ctrls
+    # 2. failure and control traces with heal and 2PC
+    wl = main_workload()
+    fails = [compile_masks(random_trace(s, sched, RECONF_SLICES, n_events=6),
+                           sched, RECONF_SLICES) for s in range(RFLEET_TRACES)]
+    ctrls = [compile_control(random_control_trace(s, N_TORS, RECONF_SLICES,
+                                                  n_events=4),
+                             RECONF_SLICES, N_TORS, slice_ns=slice_ns, seed=s)
+             for s in range(RFLEET_TRACES)]
+    sweep("traces_heal_2pc", ReconfigConfig(**base, scheme="hoho", k_hot=4,
+                                            heal=True, install="2pc"),
+          [wl] * RFLEET_TRACES, failures=fails, control=ctrls)
+    if not any(out["traces_heal_2pc"]["failed_links"]):
+        raise SystemExit("phase 22(a): no trace failed a link")
+    return out
+
+
+def check_sharded(dev) -> dict:
+    """Phase 22(b): ``simulate_sharded`` at 108 ToRs on phase 4's workload
+    (131,072 packets, 214 slices) with phase 17's failure and control
+    masks and telemetry on, on phase 4's ``vlb`` and on ``ucmp`` (several
+    valid slots an entry, so that a lookup hashing a rank's local index
+    picks other paths): 1 rank over NCCL, 2, 4 and 5 ranks sharing the card
+    over gloo (4 and 5 over the first 64 slices). Every run equal to the
+    single-device ``simulate`` of its length in every field and counter,
+    ``check_sharding`` clean, every rank's lookup and admission launches
+    one run's. Slices/s per rank count (rank 0's run time), exchanges and
+    bytes exchanged a slice. Raises ``SystemExit`` on a mismatch; returns
+    the numbers."""
+    from repro_torch.core import (FabricTables, TelemetryConfig,
+                                  compile_control, compile_masks, round_robin,
+                                  simulate, simulate_sharded, toolkit, ucmp,
+                                  vlb)
+    sched = round_robin(N_TORS, 1)
+    wl = main_workload()
+    net = faulty_net(sched)
+    cfg = net.fabric_cfg
+    masks = {S: (compile_masks(net.failure_trace, sched, S),
+                 compile_control(net.control_trace, S, N_TORS,
+                                 slice_ns=SLICE_US * 1000.0))
+             for S in {S for _, _, S in SHARD_RUNS}}
+    tele = TelemetryConfig()
+    out = dict(launches=dict(tfl=0, adm=0))
+    for fab, routing in (("vlb", vlb(sched, kpaths=4)), ("ucmp", ucmp(sched))):
+        tables = FabricTables.build(sched, routing)
+        valid = (tables.inj_next >= 0).sum(-1)
+        one, rate = {}, {}
+        for S, (fail, ctrl) in masks.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one[S] = simulate(tables, wl, cfg, S, failures=fail,
+                              control=ctrl, telemetry=tele, device=dev)
+            rate[S] = S / (time.perf_counter() - t0)
+        out[fab] = dict(paths_per_entry=float(valid[valid > 0].mean()),
+                        one_device_slices_per_s=rate[SLICES])
+        for D, backend, S in SHARD_RUNS:
+            fail, ctrl = masks[S]
+            want = [S * (1 + cfg.hops_per_slice), S * cfg.hops_per_slice]
+            t0 = time.perf_counter()
+            res, dbg = simulate_sharded(tables, wl, cfg, S, num_shards=D,
+                                        failures=fail, control=ctrl,
+                                        telemetry=tele, with_debug=True,
+                                        backend=backend)
+            wall = time.perf_counter() - t0
+            bad = sim_diff(one[S], res)
+            if bad is not None:
+                raise SystemExit(f"phase 22(b) {fab} on {D} ranks: the "
+                                 f"sharded and one-device runs differ in "
+                                 f"{bad}")
+            viol = toolkit.check_sharding(res, dbg, wl, S)
+            if viol:
+                raise SystemExit(f"phase 22(b) {fab} on {D} ranks: "
+                                 f"check_sharding: {viol[:3]}")
+            if dbg["launches"].tolist() != [want] * D:
+                raise SystemExit(f"phase 22(b) {fab} on {D} ranks: launches "
+                                 f"{dbg['launches'].tolist()} (want {want} "
+                                 "on every rank)")
+            out["launches"]["tfl"] += int(dbg["launches"][:, 0].sum())
+            out["launches"]["adm"] += int(dbg["launches"][:, 1].sum())
+            out[fab][f"D{D}"] = dict(
+                backend=backend or "nccl", slices=S, wall_s=wall,
+                run_s=dbg["run_s"], slices_per_s=S / dbg["run_s"],
+                exchanges_per_slice=dbg["exchanges"] / S,
+                exchanged_bytes_per_slice=dbg["exchanged_bytes"] / S,
+                admitting_ranks=len(set(dbg["adm_shard"].tolist()) - {-1}))
+            log(f"phase 22(b) {fab} on {D} ranks ({backend or 'nccl'}): "
+                f"{json.dumps(out[fab][f'D{D}'])}")
+    return out
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -2618,11 +2877,11 @@ def main() -> int:
     Tr = table.shape[1]
     phase_off = t32(rng.integers(-2 * Tr, 2 * Tr + 1, N_TORS))
 
-    def new_form(d, P=P, po=None, hp=None):
+    def new_form(d, P=P, po=None, hp=None, hb=None):
         return lambda: tfl.time_flow_lookup(table, None, 5, sel[:P],
                                             node[:P], dstv[:P], 213,
                                             mask=masks[d][:P], phase_off=po,
-                                            hash_period=hp)
+                                            hash_period=hp, hash_base=hb)
     timings["tfl_packed_ms"] = graph_ms(lambda: tfl.time_flow_lookup(
         table, None, 5, sel, node, dstv, hv))
     # with and without offsets in turns: without, with, with, without
@@ -2643,6 +2902,16 @@ def main() -> int:
         timings[f"tfl_fleet_{tag}_ms"] = statistics.fmean(runs[1:3])
         log(f"phase 3 lookup at mask {d}, without / with / with / without "
             "the per-scenario hash index: "
+            + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
+    # a sharded run's global hash index (the last of 5 ranks' base), in
+    # turns with the same calls without it
+    for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1")):
+        runs = [graph_ms(new_form(d, hb=hb))
+                for hb in (None, 4 * P // 5, 4 * P // 5, None)]
+        timings[f"tfl_base_{tag}_without_ms"] = statistics.fmean(runs[::3])
+        timings[f"tfl_base_{tag}_ms"] = statistics.fmean(runs[1:3])
+        log(f"phase 3 lookup at mask {d}, without / with / with / without "
+            "the global hash index: "
             + " / ".join(f"{r * 1e3:.3f}" for r in runs) + " us")
     timings["tfl_new_floor_ms"] = graph_ms(new_form(1.0, P=1))
     timings["tfl_new_off_floor_ms"] = graph_ms(new_form(1.0, P=1,
@@ -2971,6 +3240,42 @@ def main() -> int:
         f" against {fleet['traces']['solo_scenario_slices_per_s']:.1f}; "
         "every member equal to its solo run")
 
+    # -- 22. reconfigure_fleet and simulate_sharded ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    rfleet = check_reconfigure_fleet(dev)
+    log(f"phase 22(a) reconfigure_fleet: {json.dumps(rfleet)}")
+    for tag, r in rfleet.items():
+        ep = r["epoch"]
+        log(f"phase 22(a) {tag}: {r['scenarios']} scenarios "
+            f"{r['fleet_scenario_slices_per_s']:.1f} scenario-slices/s "
+            f"against {r['solo_scenario_slices_per_s']:.1f} for the solo "
+            f"runs; an epoch {ep['wall_ms']:.1f} ms: measure + schedule "
+            f"{ep['measure_schedule_ms']:.1f}, {r['scenarios']} recompiles "
+            f"{ep['recompiles_ms']:.1f}, {RECONF_E} slices "
+            f"{ep['slices_ms']:.1f}; peak device memory {r['peak_mib']:.1f} "
+            f"MiB ({r['loop_peak_mib']:.1f} above what was held); every "
+            "member equal to its solo run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22b = time.perf_counter()
+    sharded = check_sharded(dev)
+    for fab in ("vlb", "ucmp"):
+        r = sharded[fab]
+        log(f"phase 22(b) simulate_sharded {fab} ({r['paths_per_entry']:.2f} "
+            f"paths an entry; one device {r['one_device_slices_per_s']:.1f} "
+            "slices/s): " + "; ".join(
+                f"D={D} {r[f'D{D}']['backend']} "
+                f"{r[f'D{D}']['slices_per_s']:.2f} slices/s, "
+                f"{r[f'D{D}']['exchanges_per_slice']:.2f} exchanges and "
+                f"{r[f'D{D}']['exchanged_bytes_per_slice']:.0f} bytes a slice"
+                for D, _, _ in SHARD_RUNS)
+            + "; every run equal to the one-device run, check_sharding "
+            "clean, both kernels launched on every rank")
+    log(f"phase 22 ({time.perf_counter() - t22:.1f} s, (b) "
+        f"{time.perf_counter() - t22b:.1f} s; {smi})")
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -3058,12 +3363,20 @@ def main() -> int:
                  for k, v in archs["arch_108"].items()},
              fleet_path_launches={k: fleet[k]["launches"]["tfl"]
                                   for k in ("seeds", "traces")},
+             reconfigure_fleet_path_launches={
+                 k: v["launches"]["tfl"] for k, v in rfleet.items()},
              fleet_hash={tag: dict(ms=timings[f"tfl_fleet_{tag}_ms"],
                                    ms_without=timings[
                                        f"tfl_fleet_{tag}_without_ms"],
                                    mask_density=d, **new_form_bound(d))
                          for d, tag in ((1.0, "full"), (0.1, "10"),
                                         (0.01, "1"))},
+             global_hash=dict(
+                 {tag: dict(ms=timings[f"tfl_base_{tag}_ms"],
+                            ms_without=timings[f"tfl_base_{tag}_without_ms"],
+                            mask_density=d, **new_form_bound(d))
+                  for d, tag in ((1.0, "full"), (0.1, "10"), (0.01, "1"))},
+                 sharded_path_launches=sharded["launches"]["tfl"]),
              main_path=dict(mask_density=main_density,
                             device_us_per_call=tfl_main_us,
                             kernels_per_slice=kernels_per_slice)),
@@ -3087,6 +3400,9 @@ def main() -> int:
                  for k, v in archs["arch_108"].items()},
              fleet_path_launches={k: fleet[k]["launches"]["adm"]
                                   for k in ("seeds", "traces")},
+             reconfigure_fleet_path_launches={
+                 k: v["launches"]["adm"] for k, v in rfleet.items()},
+             sharded_path_launches=sharded["launches"]["adm"],
              rx_cut=dict(ms=timings["adm_rx_ms"], num_keys=N_TORS,
                          **bound(adm_rx_bytes, adm_ops))),
     ]

@@ -10,10 +10,11 @@ derivation), toolkit (packet traces and table, telemetry and sharding
 checkers). Data plane (PyTorch on one device): fabric (calendar queues,
 congestion detection, push-back, offloading, failure and control masks,
 telemetry counters, one-shot and incremental runs, scenario sweeps,
-phased table swaps, versioned tables), net (the user API, run or as a
-clocked service), and the traffic-aware reconfigure loop (reconfigure)
-with its device-side routing compiler (routing_jnp) and demand
-schedulers (topology_jnp).
+runs sharded over ``torch.distributed`` ranks, phased table swaps,
+versioned tables), net (the user API, run or as a clocked service), and
+the traffic-aware reconfigure loop (reconfigure, and reconfigure_fleet
+over a sweep of scenarios) with its device-side routing compiler
+(routing_jnp) and demand schedulers (topology_jnp).
 """
 from .topology import (Circuit, Schedule, connect, round_robin, edmonds, bvn,
                        jupiter, sorn, uniform_mesh, circuits_to_conn,
@@ -24,12 +25,13 @@ from .routing import (CompiledRouting, direct, vlb, opera, ucmp, hoho, ecmp,
 from .timeflow import Entry, TimeFlowTable
 from .fabric import (FabricConfig, FabricState, FabricTables, Workload,
                      SimResult, simulate, simulate_fleet,
-                     simulate_incremental, init_state,
+                     simulate_sharded, simulate_shard, simulate_incremental, init_state,
                      ingest, step_slices, finalize, tables_from_arrays,
                      workload_from_arrays)
 from .telemetry import TelemetryConfig, TelemetryCounters
 from .net import OpenOpticsNet, clos_routing
-from .reconfigure import ReconfigConfig, ReconfigResult, reconfigure
+from .reconfigure import (ReconfigConfig, ReconfigResult, reconfigure,
+                          reconfigure_fleet)
 from .failures import (FailureEvent, FailureTrace, FailureMasks,
                        compile_masks, random_trace, repair, surviving_conn,
                        backup_tables, backup_tables_dp, fast_reroute,
@@ -49,12 +51,13 @@ __all__ = [
     "wcmp", "ksp", "neighbors", "earliest_path", "add_entry",
     "first_direct_offsets", "Entry", "TimeFlowTable",
     "FabricConfig", "FabricState", "FabricTables", "Workload", "SimResult",
-    "simulate", "simulate_fleet", "simulate_incremental", "init_state",
+    "simulate", "simulate_fleet", "simulate_sharded", "simulate_shard",
+    "simulate_incremental", "init_state",
     "ingest",
     "step_slices", "finalize", "tables_from_arrays", "workload_from_arrays",
     "TelemetryConfig", "TelemetryCounters",
     "OpenOpticsNet", "clos_routing",
-    "ReconfigConfig", "ReconfigResult", "reconfigure",
+    "ReconfigConfig", "ReconfigResult", "reconfigure", "reconfigure_fleet",
     "FailureEvent", "FailureTrace", "FailureMasks", "compile_masks",
     "random_trace", "repair", "surviving_conn", "backup_tables",
     "backup_tables_dp", "fast_reroute", "simulate_phased",

@@ -41,7 +41,8 @@ results field for field.
 * Versioned tables (the reconfigure loop's installs,
   :mod:`.reconfigure`): a window may carry ``V`` table versions and a
   per-slice, per-ToR version select; both lookup sites then read each
-  ToR's version through the lookup kernel's ``[N]`` ``vsel``.
+  ToR's version through the lookup kernel's ``[N]`` ``vsel`` (``[B·N]``
+  in a sweep of the loop, :func:`.reconfigure.reconfigure_fleet`).
 * Scenario sweeps (:func:`simulate_fleet`, the reference's vmapped
   ``simulate_fleet``): B scenarios run through one step a slice, every
   launch carrying all of them. The layout is scenario-major: packet ``p``
@@ -50,18 +51,37 @@ results field for field.
   circuits keys ``b·N(N+1) + key``; destinations, next hops and the
   electrical peer ``N`` stay per scenario. Per-slice stats are reduced
   per scenario, and the lookup hashes each packet's index within its
-  scenario. The reference's sharded entry point is not ported yet
-  (ROADMAP Queue 1 item 9), nor ``reconfigure_fleet``.
+  scenario.
+* Sharded runs (:func:`simulate_sharded`, the reference's
+  ``simulate_sharded``): the packets split over ``torch.distributed``
+  ranks in contiguous global-index blocks, the failure and control masks
+  by owned ToR rows (:mod:`repro_torch.distributed.sharding`). Every rank
+  runs the step over its block and keeps the per-ToR aggregates
+  replicated, each update reconciled by an all-reduce
+  (:mod:`repro_torch.distributed.collectives`); admission takes the
+  earlier ranks' bytes off the capacities, backlog minima compare global
+  packet ids, and the lookup hashes each packet's global index. Equal to
+  :func:`simulate` in every field and counter.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..distributed import collectives, sharding
+from ..distributed.spawn import choose_backend, run_ranks
+from ..distributed.collectives import (earlier_offsets, exchange_min,
+                                       exchange_sum, gather_node_row,
+                                       offsets_buffer)
+from ..kernels import _build
+from ..kernels import admission as admission_mod
+from ..kernels import time_flow_lookup as lookup_mod
 from ..kernels.admission import admission_admit
 from ..kernels.time_flow_lookup import salted_hash, time_flow_lookup
 from .routing import CompiledRouting, first_direct_offsets
@@ -69,7 +89,8 @@ from .telemetry import TelemetryConfig, TelemetryCounters, counters_from_out
 from .topology import Schedule
 
 __all__ = ["FabricConfig", "Workload", "FabricTables", "SimResult",
-           "FabricState", "simulate", "simulate_fleet",
+           "FabricState", "simulate", "simulate_fleet", "simulate_sharded",
+           "simulate_shard",
            "simulate_incremental", "init_state",
            "ingest", "step_slices", "finalize", "tables_from_arrays",
            "workload_from_arrays", "resolve_device"]
@@ -216,7 +237,8 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
-                node_ok=None, t0: int = 0):
+                node_ok=None, t0: int = 0, row0: int | None = None,
+                reduce=None):
     """Per-circuit capacity ``[R, M*(N+1)]``, keyed loc*(N+1)+peer; key
     loc*(N+1)+N is the electrical egress. ``conn`` is ``[T, M, U]``: M = N
     ToRs, or a scenario sweep's B·N (each scenario's ToRs a block of rows
@@ -230,7 +252,13 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
     ``slice_bytes``, the degraded product in float32 truncated toward
     zero, a healthy (>= 1) or dead (<= 0) link exact; a down ToR's
     electrical egress gets nothing. The result takes 4·R·M·(N+1) bytes:
-    with masks, about as much again as the window's ``link_cap``."""
+    with masks, about as much again as the window's ``link_cap``.
+
+    A rank of a sharded run holds only its own rows of ``link_cap``
+    (``[W, ceil(N/D), N]``, the first at global row ``row0``; padded rows
+    past N scatter nothing): it builds the partial key map of its rows,
+    ``reduce`` (the sum over the ranks) joins the partial maps, and the
+    electrical row is added after it, from the whole ``node_ok``."""
     T, M, U = conn.shape
     dev = conn.device
     R = T if link_cap is None else link_cap.shape[0]
@@ -239,6 +267,14 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
     rows = torch.arange(M, dtype=torch.int64, device=dev)[None, :]
     rrows = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
     conn_r = conn[(torch.arange(R, device=dev) + t0) % T]      # [R, M, U]
+    own = None
+    if row0 is not None:
+        # this rank's rows, with their global row keys
+        g = row0 + torch.arange(link_cap.shape[1], dtype=torch.int64,
+                                device=dev)
+        own = (g < M)[None, :]
+        rows = g.clamp(max=M - 1)[None, :]
+        conn_r = conn_r[:, rows[0]]
     flat = caps.view(-1)
     for k in range(U):
         peer = conn_r[:, :, k].to(torch.int64)                # [R, M]
@@ -250,8 +286,11 @@ def _build_caps(conn, cfg: FabricConfig, N: int, link_cap=None,
             scaled = torch.where(
                 lck >= 1.0, scaled,
                 torch.where(lck <= 0.0, 0, (lck * cfg.slice_bytes).to(_I32)))
+        okp = peer >= 0 if own is None else (peer >= 0) & own
         flat.index_add_(0, (rrows * NKEY + keyk).reshape(-1),
-                        torch.where(peer >= 0, scaled, 0).reshape(-1))
+                        torch.where(okp, scaled, 0).reshape(-1))
+    if reduce is not None:
+        caps = reduce(caps)
     elec = torch.arange(M, device=dev) * (N + 1) + N
     caps[:, elec] += (cfg.elec_bytes if node_ok is None else
                       torch.where(node_ok, cfg.elec_bytes, 0).to(_I32))
@@ -334,14 +373,35 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     ``NB = B·N`` rows, a packet's ToR ids are offset by ``b·N`` where they
     index them, its flow id by ``b·F`` where it indexes ``max_seq``, and
     the stats come per scenario (``[B]``, ``[B·N]``). With B = 1 none of
-    that adds an op: the solo step is the same program."""
+    that adds an op: the solo step is the same program.
+
+    A rank of a sharded run (``j["shard"]``, a :class:`_Shard`; built by
+    :func:`simulate_shard`) holds its block of the packets, whose global
+    ids are ``rank·P + i``, and the replicated per-ToR aggregates: each
+    update of one is reconciled by an all-reduce before its next read
+    (the reference's ``upd_add``, ``gsum``, ``gmin`` and ``gmax`` points);
+    the counts and counters of a slice go in one exchange at its end, the
+    reorder count at the run's. Admission is fed capacities less the
+    earlier ranks' wanted bytes; the backlog minima hold global ids; the
+    lookup hashes each packet's global index. Unsharded, none of that adds
+    an op."""
+    sh = j.get("shard")
+    if sh is not None and "tf_next_v" in j:
+        raise ValueError("versioned tables come from the reconfigure loop, "
+                         "which sweeps scenarios, not shards: a sharded "
+                         "run refuses them")
     T, NB, _ = j["conn"].shape
     B = j.get("num_scenarios", 1)
     N = NB // B
     P = j["src"].shape[0]
     dev = j["src"].device
-    pid = torch.arange(P, dtype=_I32, device=dev)
-    PG = P
+    lid = torch.arange(P, dtype=_I32, device=dev)
+    if sh is None:
+        pid, PG, hbase = lid, P, None
+    else:
+        # global packet ids: rank d holds [d·P, (d+1)·P) of the padded PG
+        pid, PG = lid + sh.rank * P, P * sh.size
+        hbase = sh.rank * P if per_packet_mp else None
     NKEY = NB * (N + 1)
     T2 = 2 * T                       # calendar-queue ring: dep in (t, t + 2T)
     limit = min(cfg.slice_bytes, cfg.congestion_threshold)
@@ -351,11 +411,15 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     has_ctrl = "phase_off" in j
     has_tele = telemetry is not None
     mt0 = j.get("mask_t0", 0)        # the masks' first absolute slice
-    spill = pid + NB if has_tele else None  # counters' spill slots (count_)
+    spill = lid + NB if has_tele else None  # counters' spill slots (count_)
     # [W, NKEY] for the window's W slices with failure masks, else [T, NKEY]
-    # for the cycle
+    # for the cycle; a rank builds its own rows' map and the ranks sum them
+    shard_rows = {} if sh is None or not has_fail else dict(
+        row0=sh.rank * j["link_cap"].shape[1],
+        reduce=lambda x: exchange_sum(x, sh.group))
     caps_rows = _build_caps(j["conn"], cfg, N, j.get("link_cap"),
-                            j.get("node_ok"), mt0 if has_fail else 0)
+                            j.get("node_ok"), mt0 if has_fail else 0,
+                            **shard_rows)
 
     # packed (injection, transit) tables for the fused first-phase lookup,
     # with a version axis when the window carries versioned tables
@@ -395,9 +459,95 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
     def vbucket(loc, dep_abs):
         return cl(loc) * T2 + dep_abs % T2
 
-    def add_(target, idx, vals, mask):
-        """``target.at[idx].add(where(mask, vals, 0))``, in place."""
-        target.index_add_(0, idx, torch.where(mask, vals, 0))
+    # Sharded, each replicated aggregate is reconciled before its next
+    # read, and the exchanges due by a read go in one all-reduce: the
+    # ranks' adds to an aggregate wait as a delta (pend_sum), the
+    # aggregates a rank min- or max-reduced locally (pend_min, a max as the
+    # min of the negation) ride the same sum as every rank's copy, each in
+    # its own row of a zero buffer (sync_). Every minimum but push-back's
+    # resc_min is updated before a sum that precedes its next read (the
+    # backlog cuts and max_seq before the hop's buffer sum, block_until
+    # before the next sum); resc_min, read right after its update, takes a
+    # min-reduce of its own (sync_min_).
+    pend_sum: list = []            # (aggregate, delta) pairs
+    pend_min: dict = {}            # id -> (aggregate, negated)
+
+    def defer_(target, delta=None):
+        """The pending delta of ``target`` (a new zero one, or ``delta``
+        added to it)."""
+        for tg, d in pend_sum:
+            if tg is target:
+                return d if delta is None else d.add_(delta)
+        d = torch.zeros_like(target) if delta is None else delta.clone()
+        pend_sum.append((target, d))
+        return d
+
+    def sync_(*extra):
+        """Sharded: add every pending delta, summed over the ranks, to its
+        aggregate, reduce every pending minimum (maximum) over the ranks'
+        copies, and sum the int32 ``extra`` tensors over the ranks, all in
+        one all-reduce; returns the summed extras."""
+        mins = list(pend_min.values())
+        rows = []
+        for tg, neg in mins:
+            row = tg.new_zeros((sh.size,) + tuple(tg.shape))
+            row[sh.rank] = -tg if neg else tg
+            rows.append(row)
+        bufs = [d for _, d in pend_sum] + rows + list(extra)
+        if not bufs:
+            return []
+        red = exchange_sum(torch.cat([b.reshape(-1) for b in bufs]),
+                           sh.group)
+        parts = torch.split(red, [b.numel() for b in bufs])
+        for (tg, _), part in zip(pend_sum, parts):
+            tg += part.view_as(tg)
+        for (tg, neg), part in zip(mins, parts[len(pend_sum):]):
+            m = part.view((sh.size,) + tuple(tg.shape)).amin(0)
+            tg.copy_(-m if neg else m)
+        pend_sum.clear()
+        pend_min.clear()
+        return [part.view_as(b) for part, b in
+                zip(parts[len(bufs) - len(extra):], extra)]
+
+    def sync_min_():
+        """Sharded: min-reduce (max-reduce) every pending aggregate over
+        the ranks, in one all-reduce."""
+        if not pend_min:
+            return
+        ts = list(pend_min.values())
+        red = exchange_min(torch.cat([(-tg if neg else tg).reshape(-1)
+                                      for tg, neg in ts]), sh.group)
+        for (tg, neg), part in zip(ts, torch.split(
+                red, [tg.numel() for tg, _ in ts])):
+            tg.copy_((-part if neg else part).view_as(tg))
+        pend_min.clear()
+
+    def add_(target, *updates):
+        """``target.at[idx].add(where(mask, vals, 0))`` for each ``(idx,
+        vals, mask)`` of ``updates``, in place. Sharded (the target is a
+        replicated aggregate) the adds go into its pending delta."""
+        if sh is not None:
+            target = defer_(target)
+        for idx, vals, mask in updates:
+            target.index_add_(0, idx, torch.where(mask, vals, 0))
+
+    def admit(key, want, cap_left, num_keys):
+        """FIFO admission of ``want`` under the capacities ``cap_left()``
+        (the admission kernel). Sharded, a packet's global byte prefix in
+        its group is its local one plus the earlier ranks' wanted bytes of
+        the group: the capacities are fed less those (the offsets of
+        ``shard_group_offsets``, exchanged with the pending deltas), and
+        the admitted bytes are this rank's."""
+        if sh is None:
+            return admission_admit(key, size, want, cap_left(),
+                                   num_keys=num_keys)
+        local = torch.zeros((num_keys + 1,), dtype=_I32, device=dev)
+        local.index_add_(0, torch.where(want, key, num_keys),
+                         torch.where(want, size, 0))
+        buf, = sync_(offsets_buffer(local[:num_keys], sh.rank, sh.size))
+        return admission_admit(key, size, want,
+                               cap_left() - earlier_offsets(buf, sh.rank),
+                               num_keys=num_keys)
 
     def count_(counter, node, vals, mask):
         """``counter[node] += where(mask, vals, 0)``, in place, for a
@@ -408,16 +558,22 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                            torch.where(mask, vals, 0))
 
     def max_at_(target2d, row, col, vals):
-        """``target2d.at[row, col].max(vals)``, in place."""
+        """``target2d.at[row, col].max(vals)``, in place (sharded, to be
+        max-reduced)."""
         ncol = target2d.shape[1]
         target2d.view(-1).scatter_reduce_(
             0, row.to(torch.int64) * ncol + col, vals, "amax",
             include_self=True)
+        if sh is not None:
+            pend_min[id(target2d)] = (target2d, True)
 
     def min_at_(target, idx, vals):
-        """``target.at[idx].min(vals)``, in place."""
+        """``target.at[idx].min(vals)``, in place (sharded, to be
+        min-reduced)."""
         target.scatter_reduce_(0, idx.to(torch.int64), vals, "amin",
                                include_self=True)
+        if sh is not None:
+            pend_min[id(target)] = (target, False)
 
     def on_switch_bytes(occ, t):
         """Per-node switch-resident bytes: the occupancy columns within the
@@ -436,9 +592,11 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             return
         dep_abs = t + off
         qb = vbucket(s["loc"], dep_abs)
+        if sh is not None:
+            sync_()                  # the occupancy read below
         full = arrived & (off > 0) & (s["occ"][qb] > limit)
-        add_(s["occ"], qb, -size, full)
-        add_(s["occ"], vbucket(s["loc"], t + 1), size, full)
+        add_(s["occ"], (qb, -size, full),
+             (vbucket(s["loc"], t + 1), size, full))
         if has_tele:
             count_(s["_tdef"], cl(s["loc"]), size, full)
         s["relook"] = s["relook"] | full
@@ -465,7 +623,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
 
         # -- 0. calendar queues activating this slice leave the occupancy map
         act = (s["loc"] >= 0) & (s["dep"] == t)
-        add_(s["occ"], cl(s["loc"]) * T2 + t % T2, -size, act)
+        add_(s["occ"], (cl(s["loc"]) * T2 + t % T2, -size, act))
 
         # -- 1+2. injection & re-lookup of deferred packets (fused lookup) --
         ready = (j["t_inject"] <= t) & (s["loc"] == NOT_INJECTED)
@@ -481,8 +639,9 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         looked_up = ready | redo
         nxt_i, off_i = time_flow_lookup(table, None, t % Tr, sel, node, dst,
                                         h, mask=looked_up, phase_off=po_t,
-                                        vsel=vs_t, hash_period=hash_period)
-        off_i = _spread_offsets(off_i, looked_up, pid)
+                                        vsel=vs_t, hash_period=hash_period,
+                                        hash_base=hbase)
+        off_i = _spread_offsets(off_i, looked_up, lid)
         nxt_r, off_r = nxt_i, off_i
         if cfg.flow_pausing:
             # elephants wait for the direct circuit their source ToR
@@ -508,19 +667,21 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         s["loc"] = torch.where(inject, src, s["loc"])
         s["nxt"] = torch.where(inject, nxt_i, s["nxt"])
         s["dep"] = torch.where(inject, t + off_i, s["dep"])
-        add_(s["occ"], vbucket(s["loc"], t + off_i), size,
-             inject & (off_i > 0))
+        add_(s["occ"], (vbucket(s["loc"], t + off_i), size,
+                        inject & (off_i > 0)))
         enqueue_checks(s, inject, off_i, t)
         n_blocked = total(ready & blocked)
         # deferred packets re-enter the pipeline with a fresh action
         s["nxt"] = torch.where(redo, nxt_r, s["nxt"])
         s["dep"] = torch.where(redo, t + off_r, s["dep"])
         s["relook"] = s["relook"] & ~redo
-        add_(s["occ"], vbucket(s["loc"], t + off_r), size,
-             redo & (off_r > 0))
+        add_(s["occ"], (vbucket(s["loc"], t + off_r), size,
+                        redo & (off_r > 0)))
 
         # -- 3. transmission with cut-through chaining ----------------------
         used = torch.zeros((NKEY,), dtype=_I32, device=dev)
+        if sh is not None:
+            sync_()
         buf_now = on_switch_bytes(s["occ"], t)
         backlog_min = torch.full((NKEY,), PG, dtype=_I32, device=dev)
         rx_backlog_min = torch.full((NB,), PG, dtype=_I32, device=dev)
@@ -558,16 +719,22 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             if cfg.pushback:
                 # FIFO admission against the receiver's remaining buffer
                 need_buf = want & (nxt < N) & (nxt != dst)
-                room = (cfg.switch_buffer - buf_now).clamp(min=0).to(_I32)
-                adm_rx, _ = admission_admit(cl(nxt), size, need_buf, room,
-                                            num_keys=NB)
+                adm_rx, _ = admit(
+                    cl(nxt), need_buf, lambda: (cfg.switch_buffer - buf_now)
+                    .clamp(min=0).to(_I32), NB)
                 rej_rx = need_buf & ~adm_rx
                 min_at_(rx_backlog_min, torch.where(rej_rx, cl(nxt), 0),
                         torch.where(rej_rx, pid, PG))
                 want &= adm_rx | ~need_buf
-            admitted, consumed = admission_admit(key, size, want, caps - used,
-                                                 num_keys=NKEY)
-            used = used + consumed
+            admitted, consumed = admit(key, want, lambda: caps - used, NKEY)
+            if sh is None:
+                used = used + consumed
+            else:
+                defer_(used, consumed)
+
+                # ownership trace: the rank that admitted each packet
+                s["adm_shard"] = torch.where(admitted, sh.rank,
+                                             s["adm_shard"])
             if not cfg.pushback:
                 rejected = want & ~admitted
                 min_at_(backlog_min, torch.where(rejected, key, 0),
@@ -576,6 +743,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                 resc = need_buf & adm_rx & ~admitted
                 min_at_(resc_min, torch.where(resc, key, 0),
                         torch.where(resc, pid, PG))
+                if sh is not None:
+                    sync_min_()      # markable reads the group's resc_min
                 markable = want & ~admitted & ~need_buf & \
                     (pid < resc_min[key])
                 min_at_(backlog_min, torch.where(markable, key, 0),
@@ -592,6 +761,10 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             s["max_seq"].scatter_reduce_(
                 0, torch.where(at_dst, flow_g, 0).to(torch.int64),
                 torch.where(at_dst, seq, -1), "amax", include_self=True)
+            if sh is not None:
+                # max-reduced at the next read; reorder stays a partial
+                # count a rank, summed at the run's end
+                pend_min[id(s["max_seq"])] = (s["max_seq"], True)
             s["loc"] = torch.where(at_dst, DELIVERED, newloc)
             s["nhops"] = s["nhops"] + admitted.to(_I32)
             # transit lookup at the new node
@@ -600,13 +773,16 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
             nxt_t, off_t = time_flow_lookup(table, None, t % Tr, 1, node_t,
                                             dst, h, mask=in_transit,
                                             phase_off=po_t, vsel=vs_t,
-                                            hash_period=hash_period)
-            off_t = _spread_offsets(off_t, in_transit, pid)
+                                            hash_period=hash_period,
+                                            hash_base=hbase)
+            off_t = _spread_offsets(off_t, in_transit, lid)
             s["nxt"] = torch.where(in_transit, nxt_t, s["nxt"])
             s["dep"] = torch.where(in_transit, t + off_t, s["dep"])
             # buffer-overflow drops on arrival; a rejection also pushes the
             # sender back (§5.2)
-            add_(buf_now, node_t, size, in_transit)
+            add_(buf_now, (node_t, size, in_transit))
+            if sh is not None:
+                sync_()
             overflow = in_transit & (buf_now[node_t] > cfg.switch_buffer)
             if cfg.pushback:
                 max_at_(s["block_until"], torch.where(overflow, dst_g, 0),
@@ -616,8 +792,8 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                 count_(s["_tdrop"], node_t, size, overflow)
             s["loc"] = torch.where(overflow, DROPPED, s["loc"])
             arrived = in_transit & ~overflow
-            add_(s["occ"], vbucket(s["loc"], t + off_t), size,
-                 arrived & (off_t > 0))
+            add_(s["occ"], (vbucket(s["loc"], t + off_t), size,
+                            arrived & (off_t > 0)))
             enqueue_checks(s, arrived, off_t, t)
 
         # -- 4. packets that missed their slice ------------------------------
@@ -626,7 +802,7 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
         bump = t + 1 if cfg.cc_detect else t + T  # paused a cycle (§5.2)
         if cfg.cc_detect:
             s["relook"] = s["relook"] | missed
-        add_(s["occ"], cl(s["loc"]) * T2 + bump % T2, size, missed)
+        add_(s["occ"], (cl(s["loc"]) * T2 + bump % T2, size, missed))
         if has_tele:
             count_(s["_tdef"], cl(s["loc"]), size, missed)
         s["dep"] = torch.where(missed, bump, s["dep"])
@@ -635,14 +811,29 @@ def _make_step(j, cfg: FabricConfig, per_packet_mp: bool,
                     missed.to(_I32) * (t + T))
 
         # -- 5. per-slice stats (row sums of the occupancy map) --------------
+        delivered = total(torch.where(s["t_del"] == t, size, 0))
+        dropped = total(s["loc"] == DROPPED)
+        if sh is not None:
+            # the slice's counts and counters, summed with the occupancy's
+            # last deltas and the minima read at the next slice
+            # (block_until); this slice's backlog cuts dropped
+            for m in (backlog_min, rx_backlog_min, resc_min):
+                pend_min.pop(id(m), None)
+            counts = [torch.stack([n_blocked, miss_cnt, delivered, dropped])]
+            if has_tele:
+                counts += [s[k][:NB] for k in ("_tin", "_tdef", "_tdrop")]
+            red = torch.cat(sync_(*counts))
+            n_blocked, miss_cnt, delivered, dropped = red[:4]
+            if has_tele:
+                for i, k in enumerate(("_tin", "_tdef", "_tdrop")):
+                    s[k][:NB] = red[4 + i * NB:4 + (i + 1) * NB]
         on_sw = on_switch_bytes(s["occ"], t)
         if cfg.offload:
             off_sw = s["occ"].view(NB, T2).sum(1).to(_I32) - on_sw
         else:
             off_sw = torch.zeros_like(on_sw)
         stats = dict(
-            delivered_bytes=total(torch.where(s["t_del"] == t, size, 0)),
-            dropped=total(s["loc"] == DROPPED),
+            delivered_bytes=delivered, dropped=dropped,
             buf_bytes=on_sw, offl_bytes=off_sw,
             blocked_inj=n_blocked, slice_miss=miss_cnt,
         )
@@ -706,6 +897,10 @@ def _tele_delivery_rows(final, j, telemetry: TelemetryConfig,
     if B > 1:
         bucket = bucket + j["scen"] * nbk
     hist.view(-1).index_add_(0, relc * (B * nbk) + bucket, ok.to(_I32))
+    if "shard" in j:
+        # each rank scattered its own block of the packets
+        exchange_sum(rows, j["shard"].group)
+        exchange_sum(hist, j["shard"].group)
     return rows, hist
 
 
@@ -758,23 +953,40 @@ def _device_arrays(tables: FabricTables, wl: Workload, dev) -> dict:
     return _table_arrays(tables, dev) | _packet_arrays(wl, dev)
 
 
+def _stack_nodes(xs):
+    """Per-scenario ``[R, N, ...]`` tensors as one ``[R, B·N, ...]``,
+    scenario-major on the node axis (one tensor stays as it is)."""
+    if len(xs) == 1:
+        return xs[0]
+    x = torch.stack(xs, dim=1)
+    return x.reshape(x.shape[0], -1, *x.shape[3:]).contiguous()
+
+
 def _add_masks(j, failures, control, num_slices: int) -> None:
     """Check that the masks cover the window and add them to ``j`` as
-    tensors on its device (``None`` adds nothing)."""
-    N = j["conn"].shape[1]
+    tensors on its device (``None`` adds nothing). In a scenario sweep
+    (``j["num_scenarios"]`` B > 1) each is a list of B mask sets, checked
+    against one scenario's N and stacked on the node axis."""
+    B = j.get("num_scenarios", 1)
+    N = j["conn"].shape[1] // B
     dev = j["conn"].device
+    each = lambda m: list(m) if isinstance(m, (list, tuple)) else [m]
+
+    def stack(ms, field, dtype):
+        return _stack_nodes([torch.as_tensor(getattr(m, field), dtype=dtype,
+                                             device=dev) for m in ms])
     if failures is not None:
-        failures.validate(num_slices, N)
-        j["link_cap"] = torch.as_tensor(failures.link_cap,
-                                        dtype=torch.float32, device=dev)
-        j["node_ok"] = torch.as_tensor(failures.node_ok, dtype=torch.bool,
-                                       device=dev)
+        fl = each(failures)
+        for m in fl:
+            m.validate(num_slices, N)
+        j["link_cap"] = stack(fl, "link_cap", torch.float32)
+        j["node_ok"] = stack(fl, "node_ok", torch.bool)
     if control is not None:
-        control.validate(num_slices, N)
-        j["phase_off"] = torch.as_tensor(control.phase_off, dtype=_I32,
-                                         device=dev).contiguous()
-        j["skew_miss"] = torch.as_tensor(control.skew_miss,
-                                         dtype=torch.bool, device=dev)
+        cl = each(control)
+        for m in cl:
+            m.validate(num_slices, N)
+        j["phase_off"] = stack(cl, "phase_off", _I32).contiguous()
+        j["skew_miss"] = stack(cl, "skew_miss", torch.bool)
 
 
 def _mask_window(failures, control, t0: int, t1: int):
@@ -883,23 +1095,26 @@ _VERSION_KEYS = ("tf_next_v", "tf_dep_v", "inj_next_v", "inj_dep_v")
 
 def _add_versions(j, versions: dict, num_slices: int) -> None:
     """Check a window's versioned tables and version select and add them
-    to ``j`` (see :func:`step_slices`)."""
+    to ``j`` (see :func:`step_slices`). In a scenario sweep the node rows
+    are the B·N rows of ``j["conn"]`` and the destinations a scenario's
+    N."""
     if set(versions) != set(_VERSION_KEYS) | {"vsel"}:
         raise ValueError(f"versions must hold {_VERSION_KEYS} and 'vsel', "
                          f"got {sorted(versions)}")
-    N = j["conn"].shape[1]
+    NB = j["conn"].shape[1]
+    N = NB // j.get("num_scenarios", 1)
     V, Tr = versions["tf_next_v"].shape[:2]
     for k in _VERSION_KEYS:
         x = versions[k]
-        if x.dim() != 5 or tuple(x.shape[:3]) != (V, Tr, N) \
+        if x.dim() != 5 or tuple(x.shape[:3]) != (V, Tr, NB) \
                 or x.shape[3] != N or x.dtype != _I32:
-            raise ValueError(f"versions[{k!r}] must be int32 [V, Tr, N, N, "
-                             f"K] with V={V}, Tr={Tr}, N={N}, got "
+            raise ValueError(f"versions[{k!r}] must be int32 [V, Tr, {NB}, "
+                             f"{N}, K] with V={V}, Tr={Tr}, got "
                              f"{x.dtype} {tuple(x.shape)}")
     vsel = versions["vsel"]
-    if vsel.dtype != _I32 or tuple(vsel.shape) != (num_slices, N):
+    if vsel.dtype != _I32 or tuple(vsel.shape) != (num_slices, NB):
         raise ValueError(f"versions['vsel'] must be int32 [{num_slices}, "
-                         f"{N}], got {vsel.dtype} {tuple(vsel.shape)}")
+                         f"{NB}], got {vsel.dtype} {tuple(vsel.shape)}")
     j.update(versions)
     j["vsel"] = vsel.contiguous()
 
@@ -909,8 +1124,9 @@ def step_slices(fs: FabricState, num_slices: int, failures=None,
     """Advance the run ``num_slices`` slices from its clock.
 
     ``failures`` / ``control`` cover this window only (``[num_slices,
-    ...]`` rows, row 0 the clock's slice); each adds its branches to this
-    window's step only when given, as in :func:`simulate`. ``versions``
+    ...]`` rows, row 0 the clock's slice; in a scenario sweep a list, one
+    per scenario); each adds its branches to this window's step only when
+    given, as in :func:`simulate`. ``versions``
     gives the window versioned tables in place of the deployed ones (the
     reconfigure loop's installs): ``tf_next_v``, ``tf_dep_v``,
     ``inj_next_v``, ``inj_dep_v`` (``[V, Tr, N, N, K]`` int32 tensors on
@@ -938,13 +1154,24 @@ def step_slices(fs: FabricState, num_slices: int, failures=None,
 
 
 def _final_out(fs: FabricState) -> dict:
-    """The result fields of the windows run so far, host numpy."""
+    """The result fields of the windows run so far, host numpy. A rank of a
+    sharded run gathers every rank's block of the packet fields (and
+    ``adm_shard``, the ownership trace) and sums the partial reorder
+    counts."""
     chunks = fs.chunks or [_window_out(fs.state, [], fs.j, fs.telemetry, 0,
                                        fs.clock)]
     s = fs.state
-    out = {k: v.cpu().numpy() for k, v in (
-        ("t_deliver", s["t_del"]), ("loc_final", s["loc"]),
-        ("nhops", s["nhops"]), ("reorder_cnt", s["reorder"]))}
+    per = dict(t_deliver=s["t_del"], loc_final=s["loc"], nhops=s["nhops"],
+               reorder_cnt=s["reorder"])
+    sh = fs.j.get("shard")
+    if sh is not None:
+        per["adm_shard"] = s["adm_shard"]
+        per = {k: exchange_sum(v.reshape(1).clone(), sh.group).reshape(())
+               if k == "reorder_cnt" else
+               gather_node_row(v, v.shape[0] * sh.size, sh.group, sh.rank,
+                               sh.size)
+               for k, v in per.items()}
+    out = {k: v.cpu().numpy() for k, v in per.items()}
     out.update({k: np.concatenate([c[k] for c in chunks])
                 for k in chunks[0]})
     return out
@@ -1035,25 +1262,16 @@ def _fleet_arrays(tabs, wls, failures, control, num_flows: int,
     packet axis and its rows a block of every node axis."""
     B, P = len(wls), wls[0].num_packets
     tab = {}            # a table set shared by scenarios is converted once
-    per = []
-    for b, (t, w) in enumerate(zip(tabs, wls)):
+    for t in tabs:
         if id(t) not in tab:
             tab[id(t)] = _table_arrays(t, dev)
-        jb = tab[id(t)] | _packet_arrays(w, dev)
-        _add_masks(jb, None if failures is None else failures[b],
-                   None if control is None else control[b], num_slices)
-        per.append(jb)
-    packet_keys = {f.name for f in dataclasses.fields(Workload)}
-    j = {}
-    for k in per[0]:
-        xs = [jb[k] for jb in per]
-        if k in packet_keys:
-            j[k] = torch.cat(xs)
-        else:                           # [R, N, ...] -> [R, B·N, ...]
-            x = torch.stack(xs, dim=1)
-            j[k] = x.reshape(x.shape[0], -1, *x.shape[3:]).contiguous()
+    j = {k: _stack_nodes([tab[id(t)][k] for t in tabs])
+         for k in _TABLE_FIELDS}
+    per = [_packet_arrays(w, dev) for w in wls]
+    j.update({k: torch.cat([pw[k] for pw in per]) for k in per[0]})
     j["num_scenarios"], j["scen_flows"] = B, num_flows
     j["scen"] = torch.arange(B, dtype=_I32, device=dev).repeat_interleave(P)
+    _add_masks(j, failures, control, num_slices)
     return j
 
 
@@ -1137,3 +1355,182 @@ def simulate_fleet(tables, wls, cfg: FabricConfig, num_slices: int,
         tele = counters_from_out(ob, telemetry)
         results.append(SimResult(**ob, telemetry=tele))
     return results
+
+
+# ---------------------------------------------------------------------------
+# sharded runs: the packets split over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """A rank of a sharded run, as the step reads it from ``j["shard"]``:
+    its rank and the shard count in ``group`` (``None``: the default
+    process group)."""
+
+    rank: int
+    size: int
+    group: object = None
+
+
+def _host(a, dtype):
+    """Host numpy of a mask field (numpy, or a torch tensor anywhere)."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a, dtype)
+
+
+# the padding of a packet block: packets that inject after the run ends
+_PACKET_FILL = dict(src=0, dst=0, size=0, flow=0, seq=0, is_eleph=False)
+# seconds a sharded run, and each of its collectives, may take
+SHARD_TIMEOUT_S = 1800.0
+
+
+def simulate_shard(tables: FabricTables, wl: Workload, cfg: FabricConfig,
+                   num_slices: int, failures=None, control=None,
+                   telemetry: TelemetryConfig | None = None,
+                   with_debug: bool = False, device=None, group=None):
+    """The body of :func:`simulate_sharded`, for a caller already in a
+    process group (``torch.distributed.init_process_group``; for example
+    one process a card under ``torchrun``): every rank of ``group`` (the
+    default group when ``None``) calls it with the whole inputs and runs
+    the step over its own block. Every rank returns the whole result
+    (and with ``with_debug`` the debug dict), as :func:`simulate_sharded`
+    describes. Rank ``r`` runs on ``cuda:(r % device_count)`` unless
+    ``device`` names another device (``"cpu"``: the plain versions)."""
+    group, D = sharding.fabric_group(None, group)
+    r = dist.get_rank(group)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    N = tables.conn.shape[1]
+    P = wl.num_packets
+    Pl = sharding.block_len(P, D)
+    NL = sharding.block_len(N, D)
+    if failures is not None:
+        failures.validate(num_slices, N)
+    if control is not None:
+        control.validate(num_slices, N)
+    # this rank's block of the packets, padded with packets that never act
+    fill = dict(_PACKET_FILL, t_inject=num_slices)
+    block = Workload(**{
+        f.name: sharding.pad_packet_axis(
+            np.asarray(getattr(wl, f.name),
+                       bool if f.name == "is_eleph" else np.int32),
+            D, fill[f.name])[r * Pl:(r + 1) * Pl]
+        for f in dataclasses.fields(Workload)})
+    j = _device_arrays(tables, block, dev)
+    j["shard"] = _Shard(r, D, group)
+
+    def own_rows(a, fill, dtype):
+        """This rank's rows of a mask field, on the device."""
+        rows = sharding.pad_node_rows(_host(a, dtype), D, fill)
+        return torch.as_tensor(rows[:, r * NL:(r + 1) * NL], device=dev)
+
+    def whole_rows(a, fill, dtype):
+        """A mask field's whole rows gathered from the ranks' own rows,
+        once a run."""
+        return gather_node_row(own_rows(a, fill, dtype), N, group, r, D,
+                               axis=1).contiguous()
+    if failures is not None:
+        j["link_cap"] = own_rows(failures.link_cap, 1.0, np.float32)
+        j["node_ok"] = whole_rows(failures.node_ok, True, bool)
+    if control is not None:
+        j["phase_off"] = whole_rows(control.phase_off, 0, np.int32)
+        j["skew_miss"] = whole_rows(control.skew_miss, False, bool)
+    num_flows = _num_flows(wl)
+    state = _init_state(j, num_flows)
+    state["adm_shard"] = torch.full_like(state["loc"], -1)
+    fs = FabricState(j=j, state=state, cfg=cfg, telemetry=telemetry,
+                     per_packet_mp=tables.multipath == "packet",
+                     num_flows=num_flows)
+
+    def counts():
+        return (lookup_mod.launches, admission_mod.launches,
+                collectives.exchanges, collectives.exchanged_bytes)
+    counts0 = counts()
+    t0 = time.perf_counter()
+    step_slices(fs, num_slices)
+    used = [a - b for a, b in zip(counts(), counts0)]
+    out = _final_out(fs)
+    run_s = time.perf_counter() - t0
+    adm_shard = out.pop("adm_shard")[:P]
+    for k in ("t_deliver", "loc_final", "nhops"):
+        out[k] = out[k][:P]            # the block padding dropped
+    tele = counters_from_out(out, telemetry)
+    res = SimResult(**out, telemetry=tele)
+    if with_debug:
+        # every rank's kernel launches in the run
+        launches = gather_node_row(torch.tensor([used[:2]], device=dev), D,
+                                   group, r, D).cpu().numpy()
+        return res, dict(adm_shard=adm_shard,
+                         owner=sharding.shard_owner(np.arange(P), P, D),
+                         num_shards=D, packet_block=Pl, launches=launches,
+                         exchanges=used[2], exchanged_bytes=used[3],
+                         run_s=run_s)
+    return res
+
+
+def simulate_sharded(tables: FabricTables, wl: Workload, cfg: FabricConfig,
+                     num_slices: int, num_shards: int | None = None,
+                     failures=None, control=None,
+                     telemetry: TelemetryConfig | None = None,
+                     with_debug: bool = False, device=None, backend=None):
+    """Run :func:`simulate` sharded over ``num_shards`` ranks of a new
+    ``torch.distributed`` process group (the reference's
+    ``simulate_sharded``), called from one process. Equal to
+    :func:`simulate` in every field and counter.
+
+    The packets are split in contiguous global-index blocks (padded with
+    packets that never inject when the count does not divide), the
+    failure and control masks by owned ToR rows (a rank holds
+    ``ceil(N / D)`` rows of ``link_cap``); every per-ToR aggregate stays
+    replicated, each update exchanged by an all-reduce
+    (:mod:`repro_torch.distributed.collectives`).
+
+    Args:
+        tables, wl, cfg, num_slices, failures, control, telemetry: as
+            :func:`simulate`.
+        num_shards: ranks (default: the visible CUDA cards; 1 on the CPU).
+            Any count works, including counts that divide neither the ToR
+            nor the packet count.
+        with_debug: also return the debug dict of
+            :func:`repro_torch.core.toolkit.check_sharding`: ``adm_shard``
+            (the rank that admitted each packet in the hop phase, -1
+            never), ``owner`` (the rank owning each packet's block),
+            ``num_shards``, ``packet_block``; and what the run cost:
+            ``launches`` (``[D, 2]``: each rank's lookup and admission
+            kernel launches), ``exchanges`` and ``exchanged_bytes`` (rank
+            0's all-reduces and their bytes), ``run_s`` (rank 0's seconds
+            from the first slice to the gathered result).
+        device: CUDA by default (rank ``r`` on card ``r % device_count``;
+            the kernels are built here, once, before the ranks start);
+            ``"cpu"`` runs the plain versions over gloo.
+        backend: ``None`` picks ``"nccl"`` when every rank has a card of
+            its own and raises when ranks would share one: name
+            ``"gloo"`` for that (NCCL refuses it). Never switched
+            silently.
+
+    The ranks are spawned (:func:`repro_torch.distributed.spawn.run_ranks`)
+    and rank 0's result is returned; a rank that fails, or a run or a
+    collective that outlives ``SHARD_TIMEOUT_S`` seconds, fails the call.
+    Callers already in a process group call :func:`simulate_shard` on
+    every rank instead.
+    """
+    dev = resolve_device(device)
+    if num_shards is None:
+        num_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    D = int(num_shards)
+    if D < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    backend = choose_backend(D, dev.type, backend)
+    N = tables.conn.shape[1]
+    if failures is not None:
+        failures.validate(num_slices, N)
+    if control is not None:
+        control.validate(num_slices, N)
+    if dev.type == "cuda":
+        _build.build(["time_flow_lookup", "admission"])
+    return run_ranks(simulate_shard,
+                     (tables, wl, cfg, num_slices, failures, control,
+                      telemetry, with_debug, "cpu" if dev.type == "cpu"
+                      else None), D, backend, dev.type, SHARD_TIMEOUT_S)

@@ -1,6 +1,5 @@
 """The traffic-aware reconfigure loop in PyTorch: the port of
-``repro.core.reconfigure`` (``reconfigure_fleet`` is not ported yet:
-ROADMAP Queue 1 item 9).
+``repro.core.reconfigure``.
 
 The paper's headline case study (§4.2, Fig. 4/5): measure the demand,
 re-derive the schedule, recompile the time-flow tables, swap them into the
@@ -36,6 +35,14 @@ of ``epoch_slices`` slices, as a Python loop over epochs on one device
    schedule) and, under control, the versioned tables and ``vsel``: both
    lookup sites pass each ToR's version to the lookup kernel.
 
+:func:`reconfigure_fleet` runs the same loop over a sweep of B scenarios
+(traffic seeds, failure and control traces) on the layout of
+:func:`repro_torch.core.fabric.simulate_fleet`: one demand measure and one
+fabric window an epoch for all of them, a schedule, heal, recompile and
+install per scenario (versioned tables ``[V, Tr, B·N, N, K]``, a version
+select ``[E, B·N]``). :func:`reconfigure` is the sweep of one, so the
+loop has one copy.
+
 Telemetry counters come back concatenated over the epochs, as the windows
 of the incremental API join them. With ``scheduler="hot_slices"`` and
 ``k_hot=0`` the schedule never changes and the loop equals a plain
@@ -53,10 +60,11 @@ from . import routing_jnp, topology_jnp
 from .controlplane import NEVER as INT_INF
 from .controlplane import install_schedule
 from .failures import surviving_conn
-from .telemetry import TelemetryConfig, TelemetryCounters
+from .telemetry import TelemetryConfig, TelemetryCounters, counters_from_out
 from .topology import Schedule
 
-__all__ = ["ReconfigConfig", "ReconfigResult", "reconfigure"]
+__all__ = ["ReconfigConfig", "ReconfigResult", "reconfigure",
+           "reconfigure_fleet"]
 
 _I32 = torch.int32
 
@@ -176,9 +184,11 @@ def _placeholder_conn(sched: Schedule, rcfg: ReconfigConfig) -> np.ndarray:
     return np.full((rcfg.bvn_slices, N, U), -1, dtype=np.int32)
 
 
-def _open_run(conn0: np.ndarray, wl, cfg, telemetry, dev):
-    """The incremental run the epochs advance: the packets and the
-    placeholder cycle; each epoch swaps its own schedule and tables in."""
+def _open_run(conn0: np.ndarray, wls, cfg, telemetry, dev):
+    """The incremental run the epochs advance: the packets of the B
+    scenarios (laid out as :func:`repro_torch.core.fabric.simulate_fleet`
+    lays them out) and the placeholder cycle; each epoch swaps its own
+    schedules and tables in."""
     _, N, _ = conn0.shape
     empty = np.full((1, N, N, 1), -1, dtype=np.int32)
     zeros = np.zeros((1, N, N, 1), dtype=np.int32)
@@ -186,7 +196,231 @@ def _open_run(conn0: np.ndarray, wl, cfg, telemetry, dev):
         conn=conn0, tf_next=empty, tf_dep=zeros, inj_next=empty,
         inj_dep=zeros, first_direct=np.zeros(conn0.shape[:1] + (N, N),
                                               np.int32))
-    return fabric_mod.init_state(tables, wl, cfg, telemetry, device=dev)
+    B = len(wls)
+    num_flows = max(fabric_mod._num_flows(w) for w in wls)
+    j = fabric_mod._fleet_arrays([tables] * B, wls, None, None, num_flows,
+                                 0, dev)
+    return fabric_mod.FabricState(
+        j=j, state=fabric_mod._init_state(j, B * num_flows), cfg=cfg,
+        telemetry=telemetry, per_packet_mp=True, num_flows=B * num_flows)
+
+
+def _per_node(x, B: int):
+    """A table of one scenario ``[T, N, ...]`` on a sweep's node axis,
+    ``[T, B·N, ...]``: the same tables for every scenario."""
+    return x if B == 1 else x.repeat(1, B, *([1] * (x.dim() - 2)))
+
+
+def _reconfig_loop(sched: Schedule, wls, cfg, rcfg: ReconfigConfig,
+                   failures, control, telemetry, dev) -> list:
+    """The epoch loop of :func:`reconfigure` for a sweep of B scenarios
+    (``failures`` / ``control``: ``None`` or one mask set per scenario),
+    on the sweep layout of :func:`repro_torch.core.fabric.simulate_fleet`:
+    one demand measure over ``B·N²`` keys, a schedule, heal, recompile
+    and install per scenario, then one ``step_slices`` window for all of
+    them. :func:`reconfigure` is the sweep of one."""
+    B = len(wls)
+    _, N, U = sched.conn.shape
+    E, K = rcfg.epoch_slices, rcfg.k_hot
+    S_total = rcfg.num_epochs * E
+    for f in failures or ():
+        f.validate(S_total, N)
+    for c in control or ():
+        c.validate(S_total, N)
+    if control is not None and rcfg.install_timeout > E:
+        raise ValueError(
+            f"install_timeout ({rcfg.install_timeout}) exceeds "
+            f"epoch_slices ({E}): the controller abandons an install at "
+            "the epoch boundary")
+    conn0 = _placeholder_conn(sched, rcfg)
+    fs = _open_run(conn0, wls, cfg, telemetry, dev)
+    base_conn = fabric_mod._i32(sched.conn, dev)
+    # each packet's (scenario, src, dst) key of the sweep's demand
+    pair_key = (fs.j["scen"].to(torch.int64) * N + fs.j["src"]) * N \
+        + fs.j["dst"]
+    keys = torch.arange(N * N, device=dev)
+    offdiag = (keys // N) != (keys % N)
+    compile_ = lambda c: routing_jnp.compile_tables(
+        c, rcfg.scheme, max_hop=rcfg.max_hop, kpaths=rcfg.kpaths)
+    if control is not None:
+        # boot tables: until its first install lands, every ToR runs tables
+        # compiled over the placeholder cycle (version -1), in every
+        # scenario
+        conn0_d = fabric_mod._i32(conn0, dev)
+        boot = compile_(conn0_d)
+        cur = [_per_node(x, B) for x in boot]   # [Tr, B·N, N, K] each
+        ver = np.full(B * N, -1, np.int64)
+        if rcfg.degrade:
+            # safe mode: direct tables over the placeholder cycle, padded
+            # to the scheme's slot counts
+            sn, sd = routing_jnp.direct_tables(conn0_d)
+            safe = [_per_node(fabric_mod._pad_k(a, c.shape[-1], fill), B)
+                    for a, c, fill in zip((sn, sd, sn, sd), boot,
+                                          (-1, 0, -1, 0))]
+
+    hist = {k: [] for k in ("hot_src", "hot_dst", "demand_total",
+                            "epoch_conn", "failed_links", "install_ver",
+                            "install_lat", "install_retries", "degraded")}
+    for e in range(rcfg.num_epochs):
+        t0 = e * E
+        s = fs.state
+        # 1. measure: pending bytes per (scenario, src, dst) from the live
+        # state
+        rem = (s["t_del"] < 0) & (s["loc"] != fabric_mod.DROPPED)
+        pend = torch.where(rem, fs.j["size"], 0)
+        demand = torch.zeros(B * N * N, dtype=_I32, device=dev).index_add_(
+            0, pair_key, pend).view(B, N * N)
+
+        # 2. re-derive each scenario's schedule from its measured demand
+        hot_src = torch.full((B, K), -1, dtype=_I32, device=dev)
+        hot_dst = hot_src.clone()
+        if rcfg.scheduler == "edmonds":
+            conn_e = torch.stack([topology_jnp.edmonds_conn(
+                d.reshape(N, N).to(torch.float32), n_uplinks=U)
+                for d in demand])
+        elif rcfg.scheduler == "bvn":
+            # uplink 0 carries the permutations, extra uplinks stay dark
+            conn_e = torch.stack([topology_jnp.bvn_conn(
+                d.reshape(N, N).to(torch.float32),
+                num_slices=rcfg.bvn_slices, max_perms=rcfg.bvn_perms,
+                sinkhorn_iters=rcfg.sinkhorn_iters) for d in demand])
+            if U > 1:
+                conn_e = torch.cat([conn_e, torch.full(
+                    (B, rcfg.bvn_slices, N, U - 1), -1, dtype=_I32,
+                    device=dev)], dim=3)
+        elif K > 0:
+            # the top-K pairs of each scenario (ties to the lower index, as
+            # lax.top_k) get dedicated bidirectional circuits in the
+            # appended slices: one stable sort per row
+            order = torch.sort(torch.where(offdiag, demand, -1), dim=1,
+                               descending=True, stable=True)
+            vals, idx = order.values[:, :K], order.indices[:, :K]
+            hs, hd = (idx // N).to(_I32), (idx % N).to(_I32)
+            ok = vals > 0
+            hot_src = torch.where(ok, hs, -1)
+            hot_dst = torch.where(ok, hd, -1)
+            bi = torch.arange(B, device=dev)[:, None]
+            srows = torch.arange(K, device=dev)[None, :]
+            extra = torch.full((B, K, N, U), -1, dtype=_I32, device=dev)
+            extra[bi, srows, hs.clamp(0, N - 1).long(), 0] = hot_dst
+            extra[bi, srows, hd.clamp(0, N - 1).long(), 0] = hot_src
+            conn_e = torch.cat([base_conn.expand(B, -1, -1, -1), extra],
+                               dim=1)
+        else:
+            conn_e = base_conn.expand(B, -1, -1, -1)
+
+        # 2b. detect -> repair: each scenario's failure state at the
+        # epoch's first slice
+        n_failed = torch.zeros((B,), dtype=_I32, device=dev)
+        if failures is not None:
+            alive = torch.stack([torch.as_tensor(f.link_cap[t0], device=dev)
+                                 for f in failures]) > 0.0
+            n_failed = (~alive & offdiag.view(N, N)).sum((1, 2)).to(_I32)
+            if rcfg.heal:
+                conn_e = torch.stack([surviving_conn(c, ~a)
+                                      for c, a in zip(conn_e, alive)])
+
+        # 3. recompile each scenario's time-flow tables on the device, and
+        # lay them on the sweep's node axis
+        per = [compile_(c) for c in conn_e]
+        new = [fabric_mod._stack_nodes([p[i] for p in per])
+               for i in range(4)]
+        fs.j.update(
+            conn=fabric_mod._stack_nodes(list(conn_e)), tf_next=new[0],
+            tf_dep=new[1], inj_next=new[2], inj_dep=new[3],
+            first_direct=fabric_mod._stack_nodes(
+                [routing_jnp.first_direct_offsets(c) for c in conn_e]))
+        win = [fabric_mod._mask_window(
+            None if failures is None else failures[b],
+            None if control is None else control[b], t0, t0 + E)
+            for b in range(B)]
+        fw = None if failures is None else [w[0] for w in win]
+        cw = None if control is None else [w[1] for w in win]
+
+        # 4. swap the tables in and run the epoch
+        if control is None:
+            # atomic swap: this epoch's tables are live from its first slice
+            fabric_mod.step_slices(fs, E, fw, None)
+            install_ver = np.full((B, N), e, np.int64)
+            lat, retries, degraded = [0] * B, [0] * B, [False] * B
+        else:
+            # 4a. each scenario's versioned install against its trace (host
+            # numpy, a few values an epoch): attempt k is sent at t0 + k *
+            # backoff; 2PC flips every ToR at the last ack if all acked in
+            # time, hotswap each ToR at its own ack
+            tis = t0 + np.arange(E, dtype=np.int64)
+            switch, vsels, lat, retries, degraded = [], [], [], [], []
+            for c in control:
+                if rcfg.install == "2pc":
+                    info = install_schedule(c, t0, rcfg.install_retries,
+                                            rcfg.install_backoff,
+                                            rcfg.install_timeout)
+                    success = info["success"]
+                    retries.append(info["retries_used"])
+                    switch_t = np.full(N, info["act"] if success
+                                       else INT_INF)
+                else:
+                    info = install_schedule(c, t0,
+                                            backoff=rcfg.install_backoff)
+                    success = info["act"] < INT_INF
+                    retries.append(0)
+                    switch_t = info["arr"]
+                lat.append(info["act"] - t0 if success else -1)
+                # 4b. the version each ToR reads each slice: 0 = old, 1 =
+                # new, 2 = safe
+                vs = (tis[:, None] >= switch_t[None, :]).astype(np.int32)
+                degr = False
+                if rcfg.degrade:
+                    skew_any = bool(np.asarray(c.skew_miss)[t0:t0 + E].any())
+                    t_degr = t0 if skew_any else INT_INF
+                    t_degr = min(t_degr, INT_INF if success
+                                 else t0 + rcfg.install_timeout)
+                    vs = np.where(tis[:, None] >= t_degr, 2, vs).astype(
+                        np.int32)
+                    degr = t_degr < INT_INF
+                degraded.append(degr)
+                switch.append(switch_t)
+                vsels.append(vs)
+            switch_t = np.concatenate(switch)              # [B·N]
+            vsel = np.concatenate(vsels, axis=1)           # [E, B·N]
+            vers = [cur, new] + ([safe] if rcfg.degrade else [])
+            versions = {k: torch.stack([v[i] for v in vers])
+                        for i, k in enumerate(("tf_next_v", "tf_dep_v",
+                                               "inj_next_v", "inj_dep_v"))}
+            versions["vsel"] = fabric_mod._i32(vsel, dev)
+            fabric_mod.step_slices(fs, E, fw, cw, versions=versions)
+            # 4c. ToRs that switched inside the epoch now own this epoch's
+            # tables: a merge on the node axis (1) of [Tr, B·N, D, K]
+            sw = switch_t <= t0 + E - 1
+            swt = torch.as_tensor(sw, device=dev)[None, :, None, None]
+            cur = [torch.where(swt, n, c) for c, n in zip(cur, new)]
+            ver = np.where(sw, e, ver)
+            install_ver = ver.reshape(B, N)
+
+        for k, v in (("hot_src", hot_src), ("hot_dst", hot_dst),
+                     ("demand_total", pend.view(B, -1).sum(1).to(_I32)),
+                     ("epoch_conn", conn_e), ("failed_links", n_failed)):
+            hist[k].append(v)
+        hist["install_ver"].append(install_ver.astype(np.int32))
+        hist["install_lat"].append(lat)
+        hist["install_retries"].append(retries)
+        hist["degraded"].append(degraded)
+
+    out = fabric_mod._final_out(fs)
+    epochs = {k: torch.stack(hist[k], dim=1).cpu().numpy()
+              for k in ("hot_src", "hot_dst", "demand_total", "epoch_conn",
+                        "failed_links")}
+    epochs["install_ver"] = np.stack(hist["install_ver"], axis=1)
+    for k, dt in (("install_lat", np.int32), ("install_retries", np.int32),
+                  ("degraded", bool)):
+        epochs[k] = np.asarray(hist[k], dt).T                 # [B, epochs]
+    results = []
+    for b in range(B):
+        ob = fabric_mod._scenario_out(out, b, B)
+        tele = counters_from_out(ob, telemetry)
+        results.append(ReconfigResult(
+            **ob, **{k: v[b] for k, v in epochs.items()}, telemetry=tele))
+    return results
 
 
 def reconfigure(sched: Schedule, wl, cfg, rcfg: ReconfigConfig,
@@ -206,168 +440,53 @@ def reconfigure(sched: Schedule, wl, cfg, rcfg: ReconfigConfig,
     """
     _validate(rcfg)
     dev = fabric_mod.resolve_device(device)
-    _, N, U = sched.conn.shape
-    E, K = rcfg.epoch_slices, rcfg.k_hot
-    S_total = rcfg.num_epochs * E
-    if failures is not None:
-        failures.validate(S_total, N)
-    if control is not None:
-        control.validate(S_total, N)
-        if rcfg.install_timeout > E:
+    return _reconfig_loop(sched, [wl], cfg, rcfg,
+                          None if failures is None else [failures],
+                          None if control is None else [control],
+                          telemetry, dev)[0]
+
+
+def reconfigure_fleet(sched: Schedule, wls, cfg, rcfg: ReconfigConfig,
+                      failures=None, control=None,
+                      telemetry: TelemetryConfig | None = None,
+                      device=None) -> list[ReconfigResult]:
+    """Run a sweep of reconfigure scenarios (traffic seeds, failure
+    traces, control traces) through one loop, the reference's vmapped
+    ``reconfigure_fleet``: each epoch measures every scenario's demand at
+    once, derives, heals, recompiles and installs each scenario's tables,
+    and runs one window of the fabric for all of them (the layout of
+    :func:`repro_torch.core.fabric.simulate_fleet`, with versioned tables
+    ``[V, Tr, B·N, N, K]`` and a version select ``[E, B·N]``). Each result
+    equals :func:`reconfigure` of its scenario in every field, history
+    array and counter.
+
+    ``wls`` is a list of workloads sharing a packet count; ``failures`` /
+    ``control`` are ``None`` or one mask set per scenario (presence is a
+    static branch, so it must agree across the sweep: use
+    ``FailureMasks.healthy`` / ``ControlMasks.perfect`` for clean
+    scenarios). The base ``sched``, ``cfg``, ``rcfg``, ``telemetry`` and
+    ``device`` are shared, as in :func:`reconfigure`.
+    """
+    _validate(rcfg)
+    dev = fabric_mod.resolve_device(device)
+    B = len(wls)
+    if B == 0:
+        return []
+    if {w.num_packets for w in wls} != {wls[0].num_packets}:
+        raise ValueError("fleet workloads must share a packet count, got "
+                         f"{sorted({w.num_packets for w in wls})}")
+    fails = list(failures) if failures is not None else [None] * B
+    ctrls = list(control) if control is not None else [None] * B
+    if len(fails) != B or len(ctrls) != B:
+        raise ValueError(f"{len(fails)} failure / {len(ctrls)} control mask "
+                         f"sets for {B} workloads")
+    for name, masks in (("failures", fails), ("control", ctrls)):
+        if any((m is None) != (masks[0] is None) for m in masks):
             raise ValueError(
-                f"install_timeout ({rcfg.install_timeout}) exceeds "
-                f"epoch_slices ({E}): the controller abandons an install at "
-                "the epoch boundary")
-    conn0 = _placeholder_conn(sched, rcfg)
-    fs = _open_run(conn0, wl, cfg, telemetry, dev)
-    base_conn = fabric_mod._i32(sched.conn, dev)
-    pair_key = (fs.j["src"].to(torch.int64) * N + fs.j["dst"])
-    keys = torch.arange(N * N, device=dev)
-    offdiag = (keys // N) != (keys % N)
-    compile_ = lambda c: routing_jnp.compile_tables(
-        c, rcfg.scheme, max_hop=rcfg.max_hop, kpaths=rcfg.kpaths)
-    if control is not None:
-        # boot tables: until its first install lands, every ToR runs tables
-        # compiled over the placeholder cycle (version -1)
-        conn0_d = fabric_mod._i32(conn0, dev)
-        cur = list(compile_(conn0_d))          # tf_next, tf_dep, inj_*
-        ver = np.full(N, -1, np.int64)
-        if rcfg.degrade:
-            # safe mode: direct tables over the placeholder cycle, padded
-            # to the scheme's slot counts
-            sn, sd = routing_jnp.direct_tables(conn0_d)
-            safe = [fabric_mod._pad_k(a, c.shape[-1], fill)
-                    for a, c, fill in zip((sn, sd, sn, sd), cur,
-                                          (-1, 0, -1, 0))]
-
-    hist = {k: [] for k in ("hot_src", "hot_dst", "demand_total",
-                            "epoch_conn", "failed_links", "install_ver",
-                            "install_lat", "install_retries", "degraded")}
-    for e in range(rcfg.num_epochs):
-        t0 = e * E
-        s = fs.state
-        # 1. measure: pending bytes per (src, dst) from the live state
-        rem = (s["t_del"] < 0) & (s["loc"] != fabric_mod.DROPPED)
-        pend = torch.where(rem, fs.j["size"], 0)
-        demand = torch.zeros(N * N, dtype=_I32, device=dev).index_add_(
-            0, pair_key, pend)
-
-        # 2. re-derive the schedule from the measured demand
-        hot_src = torch.full((K,), -1, dtype=_I32, device=dev)
-        hot_dst = hot_src.clone()
-        if rcfg.scheduler == "edmonds":
-            conn_e = topology_jnp.edmonds_conn(
-                demand.reshape(N, N).to(torch.float32), n_uplinks=U)
-        elif rcfg.scheduler == "bvn":
-            # uplink 0 carries the permutations, extra uplinks stay dark
-            conn_e = topology_jnp.bvn_conn(
-                demand.reshape(N, N).to(torch.float32),
-                num_slices=rcfg.bvn_slices, max_perms=rcfg.bvn_perms,
-                sinkhorn_iters=rcfg.sinkhorn_iters)
-            if U > 1:
-                conn_e = torch.cat([conn_e, torch.full(
-                    (rcfg.bvn_slices, N, U - 1), -1, dtype=_I32,
-                    device=dev)], dim=2)
-        elif K > 0:
-            # the top-K pairs (ties to the lower index, as lax.top_k) get
-            # dedicated bidirectional circuits in the appended slices
-            order = torch.sort(torch.where(offdiag, demand, -1),
-                               descending=True, stable=True)
-            vals, idx = order.values[:K], order.indices[:K]
-            hs, hd = (idx // N).to(_I32), (idx % N).to(_I32)
-            ok = vals > 0
-            hot_src = torch.where(ok, hs, -1)
-            hot_dst = torch.where(ok, hd, -1)
-            srows = torch.arange(K, device=dev)
-            extra = torch.full((K, N, U), -1, dtype=_I32, device=dev)
-            extra[srows, hs.clamp(0, N - 1).long(), 0] = hot_dst
-            extra[srows, hd.clamp(0, N - 1).long(), 0] = hot_src
-            conn_e = torch.cat([base_conn, extra])
-        else:
-            conn_e = base_conn
-
-        # 2b. detect -> repair: the failure state at the epoch's first slice
-        n_failed = torch.zeros((), dtype=_I32, device=dev)
-        if failures is not None:
-            alive = torch.as_tensor(failures.link_cap[t0], device=dev) > 0.0
-            n_failed = (~alive & offdiag.view(N, N)).sum().to(_I32)
-            if rcfg.heal:
-                conn_e = surviving_conn(conn_e, ~alive)
-
-        # 3. recompile the time-flow tables on the device
-        new = compile_(conn_e)
-        fs.j.update(conn=conn_e, tf_next=new[0], tf_dep=new[1],
-                    inj_next=new[2], inj_dep=new[3],
-                    first_direct=routing_jnp.first_direct_offsets(conn_e))
-        fw, cw = fabric_mod._mask_window(failures, control, t0, t0 + E)
-
-        # 4. swap the tables in and run the epoch
-        if control is None:
-            # atomic swap: this epoch's tables are live from its first slice
-            fabric_mod.step_slices(fs, E, fw, None)
-            install_ver = np.full(N, e, np.int64)
-            lat, retries, degraded = 0, 0, False
-        else:
-            # 4a. the versioned install against the trace (host numpy, a
-            # few values an epoch): attempt k is sent at t0 + k * backoff;
-            # 2PC flips every ToR at the last ack if all acked in time,
-            # hotswap each ToR at its own ack
-            if rcfg.install == "2pc":
-                info = install_schedule(control, t0, rcfg.install_retries,
-                                        rcfg.install_backoff,
-                                        rcfg.install_timeout)
-                success, retries = info["success"], info["retries_used"]
-                switch_t = np.full(N, info["act"] if success else INT_INF)
-            else:
-                info = install_schedule(control, t0,
-                                        backoff=rcfg.install_backoff)
-                success, retries = info["act"] < INT_INF, 0
-                switch_t = info["arr"]
-            lat = info["act"] - t0 if success else -1
-            # 4b. the version each ToR reads each slice: 0 = old, 1 = new,
-            # 2 = safe
-            tis = t0 + np.arange(E, dtype=np.int64)
-            vsel = (tis[:, None] >= switch_t[None, :]).astype(np.int32)
-            degraded = False
-            if rcfg.degrade:
-                skew_any = bool(np.asarray(control.skew_miss)[t0:t0 + E].any())
-                t_degr = t0 if skew_any else INT_INF
-                t_degr = min(t_degr, INT_INF if success
-                             else t0 + rcfg.install_timeout)
-                vsel = np.where(tis[:, None] >= t_degr, 2, vsel).astype(
-                    np.int32)
-                degraded = t_degr < INT_INF
-            vers = [cur, new] + ([safe] if rcfg.degrade else [])
-            versions = {k: torch.stack([v[i] for v in vers])
-                        for i, k in enumerate(("tf_next_v", "tf_dep_v",
-                                               "inj_next_v", "inj_dep_v"))}
-            versions["vsel"] = fabric_mod._i32(vsel, dev)
-            fabric_mod.step_slices(fs, E, fw, cw, versions=versions)
-            # 4c. ToRs that switched inside the epoch now own this epoch's
-            # tables: a merge on the node axis (1) of [Tr, N, D, K]
-            sw = switch_t <= t0 + E - 1
-            swt = torch.as_tensor(sw, device=dev)[None, :, None, None]
-            cur = [torch.where(swt, n, c) for c, n in zip(cur, new)]
-            ver = np.where(sw, e, ver)
-            install_ver = ver
-
-        for k, v in (("hot_src", hot_src), ("hot_dst", hot_dst),
-                     ("demand_total", pend.sum().to(_I32)),
-                     ("epoch_conn", conn_e), ("failed_links", n_failed)):
-            hist[k].append(v)
-        hist["install_ver"].append(install_ver.astype(np.int32))
-        hist["install_lat"].append(lat)
-        hist["install_retries"].append(retries)
-        hist["degraded"].append(degraded)
-
-    res = fabric_mod.finalize(fs)
-    out = {f.name: getattr(res, f.name)
-           for f in dataclasses.fields(res) if f.name != "telemetry"}
-    for k in ("hot_src", "hot_dst", "demand_total", "epoch_conn",
-              "failed_links"):
-        out[k] = torch.stack(hist[k]).cpu().numpy()
-    out["install_ver"] = np.stack(hist["install_ver"])
-    out["install_lat"] = np.asarray(hist["install_lat"], np.int32)
-    out["install_retries"] = np.asarray(hist["install_retries"], np.int32)
-    out["degraded"] = np.asarray(hist["degraded"], bool)
-    return ReconfigResult(**out, telemetry=res.telemetry)
+                f"{name} presence must agree across the fleet (it is a "
+                "static branch; use FailureMasks.healthy / "
+                "ControlMasks.perfect for clean scenarios)")
+    return _reconfig_loop(sched, wls, cfg, rcfg,
+                          None if fails[0] is None else fails,
+                          None if ctrls[0] is None else ctrls, telemetry,
+                          dev)

@@ -287,16 +287,16 @@ def check_tables_mixed(sched: Schedule, old_routing: CompiledRouting,
 def check_sharding(res, debug: dict, wl, num_slices: int) -> list[str]:
     """Sharding soundness checker for a sharded run's result
     (``check_tables``-style: returns human-readable violation messages,
-    empty = sound). The port has no sharded run yet (ROADMAP Queue 1 item
-    9); the checker takes the reference's ``simulate_sharded(...,
-    with_debug=True)`` output as numpy.
+    empty = sound), of :func:`repro_torch.core.fabric.simulate_sharded`
+    (``with_debug=True``; the reference's output as numpy checks the
+    same).
 
     Args:
         res: the ``SimResult``.
         debug: the debug dict from ``simulate_sharded(..., with_debug=True)``
-            (``adm_shard`` — shard that admitted each packet in the hop
-            phase, -1 = never hop-admitted; ``owner`` — shard owning each
-            packet's contiguous block; ``num_shards``).
+            (``adm_shard`` — the rank that admitted each packet in the hop
+            phase, -1 = never hop-admitted; ``owner`` — the rank owning
+            each packet's contiguous block; ``num_shards``).
         wl: the ``Workload`` that was simulated.
         num_slices: slices simulated.
 

@@ -50,7 +50,11 @@
 //   arguments. A scenario sweep (core/fabric.py :: simulate_fleet) lays its
 //   scenarios' packets end to end and passes the packets per scenario as
 //   hp: the kernel then hashes i mod hp, each packet's index within its
-//   own scenario (one modulo, only when hp < P).
+//   own scenario (one modulo, only when hp < P). A sharded run
+//   (core/fabric.py :: simulate_sharded) gives each rank a block of the
+//   packets and passes the block's first global index as hb: the kernel
+//   then hashes hb + i, the packet's global index, as the reference's
+//   sharded mp_hash does (one add).
 // * A ToR's local slice. With the optional [N] phase_off (control-plane
 //   clock skew, in whole slices), a packet at node n reads slice
 //   (tm + phase_off[n]) mod Tr: one more 4-byte load, after the node's
@@ -96,6 +100,7 @@ struct Lookup {
   const int32_t* hashv;      // [P] hash bits, or null: hash32(i + t * salt)
   uint32_t t;
   int64_t hp;                // hash period: packets hash i mod hp
+  int64_t hb;                // hash base: added to the hashed index
   const uint8_t* mask;       // [P] bool, or null: every packet
   int32_t* out_next;
   int32_t* out_dep;
@@ -189,7 +194,8 @@ __global__ void __launch_bounds__(kThreads) tfl_kernel(const Lookup a) {
     // 2. the packet's streams
     const int32_t s = a.sel ? __ldg(a.sel + i) : a.sel_const;
     const int64_t e = entry(a, s, __ldg(a.node + i), __ldg(a.dst + i));
-    const int64_t ih = a.hp < a.P ? i % a.hp : i;  // index in its scenario
+    // the index in its scenario, or its global index in a sharded run
+    const int64_t ih = a.hb + (a.hp < a.P ? i % a.hp : i);
     const uint32_t h =
         a.hashv ? static_cast<uint32_t>(__ldg(a.hashv + i))
                 : hash32(static_cast<uint32_t>(ih) + a.t * 0x9E3779B9u);
@@ -227,10 +233,11 @@ extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
                           int tm, const void* phase_off, const void* vsel,
                           const void* sel, int sel_const, const void* node,
                           const void* dst, const void* hashv, unsigned t,
-                          int64_t hp, const void* mask, void* out_next, void* out_dep,
-                          int64_t P, int vec, void* stream) {
+                          int64_t hp, int64_t hb, const void* mask,
+                          void* out_next, void* out_dep, int64_t P, int vec,
+                          void* stream) {
   if (P <= 0) return 0;
-  if (hp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hp < 1 || hb < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool rows_ok = V >= 1 && (vec == 1 || vec == 2 || vec == 4) &&
                        K % vec == 0 &&
                        stride % vec == 0 && aligned(rows_next, 4 * vec) &&
@@ -244,7 +251,7 @@ extern "C" int tfl_launch(const void* rows_next, const void* rows_dep,
                  static_cast<const int32_t*>(sel), sel_const,
                  static_cast<const int32_t*>(node),
                  static_cast<const int32_t*>(dst),
-                 static_cast<const int32_t*>(hashv), t, hp,
+                 static_cast<const int32_t*>(hashv), t, hp, hb,
                  static_cast<const uint8_t*>(mask),
                  static_cast<int32_t*>(out_next),
                  static_cast<int32_t*>(out_dep), P};

@@ -27,7 +27,10 @@ optional:
   packet's index ``i`` (the reference's ``mp_hash``), formed in the kernel.
   With ``hash_period`` the index is taken modulo it: a scenario sweep
   (``core.fabric.simulate_fleet``) lays its scenarios' packets end to end,
-  and each packet hashes its index within its own scenario.
+  and each packet hashes its index within its own scenario. With
+  ``hash_base`` the base is added to the index: a sharded run
+  (``core.fabric.simulate_sharded``) gives each rank a block of the
+  packets, and each packet hashes its global index.
 * ``phase_off``: an ``[N]`` int32 slice offset per node (control-plane
   clock skew, ``ControlMasks.phase_off`` of the slice simulated). A packet
   at node ``n`` then reads slice ``(tm + phase_off[n]) mod Tr``, a floor
@@ -67,10 +70,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # rows_next, rows_dep, stride, V, Tr, N, D, K, tm, phase_off
     # (nullable), vsel (nullable), sel (nullable), sel_const, node, dst,
-    # hash (nullable), t, hash_period, mask (nullable), out_next, out_dep,
-    # P, vec, stream
+    # hash (nullable), t, hash_period, hash_base, mask (nullable),
+    # out_next, out_dep, P, vec, stream
     "tfl_launch": ([_P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
-                    _P, _P, ctypes.c_uint, _L, _P, _P, _P, _L, _I, _P],
+                    _P, _P, ctypes.c_uint, _L, _L, _P, _P, _P, _L, _I, _P],
                    ctypes.c_int),
 }
 
@@ -141,11 +144,11 @@ def table_dims(tbl_next, tbl_dep):
 
 def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
                            hashv, mask=None, phase_off=None, vsel=None,
-                           hash_period=None):
+                           hash_period=None, hash_base=None):
     """The plain PyTorch version: gather + :func:`select_slot`, then
     ``where(mask, lookup, (-1, 0))``. Same arguments as
     :func:`time_flow_lookup`; runs on any device."""
-    _check_hash_period(hashv, hash_period)
+    _check_hash_index(hashv, hash_period, hash_base)
     V, Tr, N, D, _ = table_dims(tbl_next, tbl_dep)
     rows_n, rows_d = _rows(tbl_next, tbl_dep)
     if isinstance(sel, torch.Tensor):
@@ -159,6 +162,8 @@ def time_flow_lookup_plain(tbl_next, tbl_dep, tm: int, sel, node, dst,
                            device=node.device)
         if hash_period is not None and hash_period < node.shape[0]:
             pid = pid % hash_period     # the index within its scenario
+        if hash_base:
+            pid = pid + int(hash_base)  # the global index of a shard's packet
         hashv = salted_hash(pid, int(hashv))
     if phase_off is not None:
         # the node's local slice; torch.remainder is a floor modulo
@@ -201,18 +206,24 @@ def _require_cuda(tensors):
                              f"tensors on one device, got {x.device}")
 
 
-def _check_hash_period(hashv, hash_period) -> None:
-    """A hash period goes with the in-kernel hash (an int ``hashv``) and is
-    positive; the kernel and its plain version refuse it otherwise."""
+def _check_hash_index(hashv, hash_period, hash_base) -> None:
+    """A hash period and a hash base go with the in-kernel hash (an int
+    ``hashv``); the period is positive, the base at least 0. The kernel
+    and its plain version refuse them otherwise."""
     if hash_period is not None and (isinstance(hashv, torch.Tensor)
                                     or int(hash_period) < 1):
         raise ValueError("time_flow_lookup: hash_period must be a positive "
                          "int and goes with the in-kernel hash (an int "
                          f"hashv), got {hash_period!r}")
+    if hash_base is not None and (isinstance(hashv, torch.Tensor)
+                                  or int(hash_base) < 0):
+        raise ValueError("time_flow_lookup: hash_base must be an int >= 0 "
+                         "and goes with the in-kernel hash (an int hashv), "
+                         f"got {hash_base!r}")
 
 
 def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
-           phase_off=None, vsel=None, hash_period=None):
+           phase_off=None, vsel=None, hash_period=None, hash_base=None):
     if tbl_dep is None:
         if tbl_next.dim() not in (6, 7) or tbl_next.shape[0] != 2 \
                 or tbl_next.shape[-2] != 2:
@@ -249,7 +260,7 @@ def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
             raise ValueError("time_flow_lookup: node, dst, hash, sel and "
                              "mask must be [P] vectors, got "
                              f"{tuple(x.shape)} for P={P}")
-    _check_hash_period(hashv, hash_period)
+    _check_hash_index(hashv, hash_period, hash_base)
     for name, x in (("phase_off", phase_off), ("vsel", vsel)):
         if x is not None and (x.dtype != torch.int32 or not x.is_contiguous()
                               or x.shape != (N,)):
@@ -259,7 +270,8 @@ def _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask=None,
 
 
 def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
-                     mask=None, phase_off=None, vsel=None, hash_period=None):
+                     mask=None, phase_off=None, vsel=None, hash_period=None,
+                     hash_base=None):
     """Per-packet time-flow table lookup.
 
     tbl_next / tbl_dep: the packed ``[2, Tr, N, D, 2, K]`` int32 table and
@@ -276,19 +288,21 @@ def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
     table version per node, so that a packet at node ``n`` reads version
     ``vsel[n]`` (``None``: version 0); hash_period: ``None`` or a positive
     int, with an int ``hashv`` only: packet ``i`` hashes ``i mod
-    hash_period`` in place of ``i``. Returns ``(next_hop, dep_offset)``,
+    hash_period`` in place of ``i``; hash_base: ``None`` or an int >= 0,
+    with an int ``hashv`` only: added to the hashed index (a shard's
+    packets hash their global index). Returns ``(next_hop, dep_offset)``,
     two ``[P]`` int32 tensors, (-1, 0) outside the mask.
     """
     global launches
     if node.device.type == "cpu":
         return time_flow_lookup_plain(tbl_next, tbl_dep, tm, sel, node, dst,
                                       hashv, mask, phase_off, vsel,
-                                      hash_period)
+                                      hash_period, hash_base)
     _require_cuda([x for x in (tbl_next, tbl_dep, sel, node, dst, hashv,
                                mask, phase_off, vsel)
                    if isinstance(x, torch.Tensor)])
     _check(tbl_next, tbl_dep, tm, sel, node, dst, hashv, mask, phase_off,
-           vsel, hash_period)
+           vsel, hash_period, hash_base)
     V, Tr, N, D, K = table_dims(tbl_next, tbl_dep)
     P = node.shape[0]
     out_next = torch.empty(P, dtype=torch.int32, device=node.device)
@@ -308,7 +322,9 @@ def time_flow_lookup(tbl_next, tbl_dep, tm: int, sel, node, dst, hashv,
         ptr(vsel), ptr(sel), 0 if isinstance(sel, torch.Tensor) else int(sel),
         node.data_ptr(), dst.data_ptr(), ptr(hashv),
         0 if isinstance(hashv, torch.Tensor) else int(hashv) & MASK32,
-        P if hash_period is None else int(hash_period), ptr(mask), out_next.data_ptr(), out_dep.data_ptr(), P,
+        P if hash_period is None else int(hash_period),
+        0 if hash_base is None else int(hash_base), ptr(mask),
+        out_next.data_ptr(), out_dep.data_ptr(), P,
         vector_width(K, stride, (rows_next, rows_dep)),
         torch.cuda.current_stream(node.device).cuda_stream)
     launches += 1

@@ -306,6 +306,67 @@ def test_lookup_validates_hash_period():
     Q_tfl.time_flow_lookup(*args, 7, hash_period=2)
 
 
+@pytest.mark.parametrize("base,hp,V", [
+    (1000, None, None), (3 * 65_537, None, None), (0, None, None),
+    (2 ** 31 - 600, None, 3), (4097, 129, None), (250, 333, 2)])
+def test_lookup_global_hash_index(base, hp, V):
+    """``hash_base`` with the in-kernel hash: packet ``i`` of a shard's
+    block hashes ``base + i`` (``base + i mod hp`` with a period), its
+    global index, alone, with ``hash_period`` and with a version axis and
+    ``vsel``. The lookup equals the Pallas kernel (interpret mode) fed the
+    reference's hash of those indices, on a table whose rows are the
+    entries each packet reads."""
+    rng = np.random.default_rng(base % 997 + (hp or 0) + (V or 0))
+    n, k, Tr, P, t, tm = 9, 4, 3, 1000, 213, 2
+    VV = V or 1
+    tn, td = _random_tables(rng, (2, VV, Tr), n, k)
+    node = rng.integers(0, n, P).astype(np.int32)
+    dst = rng.integers(0, n, P).astype(np.int32)
+    sel = rng.integers(0, 2, P).astype(np.int32)
+    vsel = rng.integers(0, VV, n).astype(np.int32)
+    mask = rng.random(P) < 0.8
+    tables = torch.stack([_t32(tn), _t32(td)], dim=-2)   # [2, V, Tr, ..]
+    if V is None:
+        tables = tables[:, 0]
+    got = Q_tfl.time_flow_lookup(
+        tables.contiguous(), None, tm, _t32(sel), _t32(node), _t32(dst), t,
+        mask=torch.tensor(mask), vsel=None if V is None else _t32(vsel),
+        hash_period=hp, hash_base=base)
+    idx = np.arange(P) % (hp or P) + base
+    h = np.asarray(ref_hash32(jnp.asarray(idx.astype(np.uint32))
+                              + jnp.uint32(t) * jnp.uint32(0x9E3779B9)))
+    v = vsel[node] if V is not None else np.zeros(P, np.int64)
+    row = ((sel * VV + v) * Tr + tm) * n + node
+    pn, pd = R_ops.time_flow_lookup(
+        *[jnp.asarray(x) for x in (tn.reshape(-1, n, k),
+                                   td.reshape(-1, n, k),
+                                   row.astype(np.int32), dst, h)], bp=256)
+    _assert_equal(got[0], np.where(mask, np.asarray(pn), -1))
+    _assert_equal(got[1], np.where(mask, np.asarray(pd), 0))
+    # a base of 0 is no base
+    if base == 0:
+        plain = Q_tfl.time_flow_lookup(
+            tables.contiguous(), None, tm, _t32(sel), _t32(node), _t32(dst),
+            t, mask=torch.tensor(mask))
+        _assert_equal(got[0], plain[0].numpy())
+        _assert_equal(got[1], plain[1].numpy())
+
+
+def test_lookup_validates_hash_base():
+    """A hash base goes with the in-kernel hash and is at least 0: the
+    kernel's checks and the plain version (the CPU path) refuse the same
+    arguments."""
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    args = (z(2, 3, 4, 4, 2, 2), None, 1, z(5), z(5), z(5))
+    for h, hb in ((z(5), 5), (7, -1), (z(5), 0)):
+        for fn in (Q_tfl._check, Q_tfl.time_flow_lookup_plain,
+                   Q_tfl.time_flow_lookup):
+            with pytest.raises(ValueError, match="hash_base"):
+                fn(*args, h, hash_base=hb)
+    Q_tfl._check(*args, 7, hash_base=3, hash_period=2)
+    Q_tfl.time_flow_lookup(*args, 7, hash_base=3, hash_period=2)
+
+
 @pytest.mark.parametrize("K,packed,want", [
     (1, True, 1), (2, True, 2), (3, True, 1), (4, True, 4), (6, True, 2),
     (8, True, 4), (12, True, 1), (1, False, 1), (2, False, 2),

@@ -142,13 +142,13 @@ def test_misshaped_masks_raise():
                control=good, device="cpu")
 
 
-def test_still_unported_raise_or_are_absent():
-    """What is ported works and what stays unported is absent, never a
-    stub: the reconfigure loop and the device compiler, also behind
-    ``compile_impl="jnp"`` and ``repair(impl="jnp")`` (ROADMAP Queue 1
-    item 6), and the scenario sweep ``simulate_fleet`` (item 9), are
-    present and run; the sharded entry point and ``reconfigure_fleet``
-    (item 9's rest) are absent."""
+def test_ported_entry_points_present_and_run():
+    """What is ported works, never a stub: the reconfigure loop and the
+    device compiler, also behind ``compile_impl="jnp"`` and
+    ``repair(impl="jnp")`` (ROADMAP Queue 1 item 6), the scenario sweeps
+    ``simulate_fleet`` and ``reconfigure_fleet`` and the sharded entry
+    point ``simulate_sharded`` (item 9) are present and run; the sweep of
+    the loop equals its solo runs, the 2-rank run the one-device run."""
     sched = Q.round_robin(6, 1)
     host = Q.vlb(sched)
     dev = Q.vlb(sched, compile_impl="jnp", device="cpu")
@@ -169,10 +169,21 @@ def test_still_unported_raise_or_are_absent():
     fleet = Q.simulate_fleet(tables, [wl, wl], Q.FabricConfig(), 4,
                              device="cpu")
     assert len(fleet) == 2 and fleet[1].t_deliver.shape == wl.src.shape
-    from repro_torch.core import fabric, reconfigure
-    for name in ("simulate_sharded", "reconfigure_fleet"):
-        assert not hasattr(fabric, name) and not hasattr(Q, name) \
-            and not hasattr(reconfigure, name), name
+    rk = Q.ReconfigConfig(epoch_slices=2, num_epochs=2, k_hot=1)
+    sweep = Q.reconfigure_fleet(sched, [wl, wl], Q.FabricConfig(
+        slice_bytes=4_000), rk, device="cpu")
+    assert len(sweep) == 2
+    for r in sweep:
+        np.testing.assert_array_equal(r.t_deliver, res.t_deliver)
+        np.testing.assert_array_equal(r.epoch_conn, res.epoch_conn)
+    cfg = Q.FabricConfig(slice_bytes=4_000)
+    sharded = Q.simulate_sharded(tables, wl, cfg, 4, num_shards=2,
+                                 device="cpu")
+    one = Q.simulate(tables, wl, cfg, 4, device="cpu")
+    for name in ("t_deliver", "loc_final", "nhops", "delivered_bytes",
+                 "buf_bytes", "reorder_cnt"):
+        np.testing.assert_array_equal(getattr(sharded, name),
+                                      getattr(one, name), err_msg=name)
 
 
 # ---------------------------------------------------------------------------
