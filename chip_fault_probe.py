@@ -20,7 +20,12 @@ against the reference's digests and their runs against the CPU: "phase
 21a"; the scenario sweep's members against their solo runs: "phase 21c")
 and phase 22 (the reconfigure loop's sweep against its solo runs: "phase
 22a"; the sharded runs against the one-device run: "phase 22b") catch a
-wrong kernel or a wrong step. For the unchanged tree and for each
+wrong kernel or a wrong step; and whether the checks of phases B (the
+mLSTM's three forms against each other and the card against the CPU), C
+(Seamless through the kernels against the plain versions; its
+cross-attention against a plain computation) and D (LLaVA's serve, its
+first decode step against the prefill of the prompt and token) catch a
+wrong model layer or serve loop. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -48,9 +53,11 @@ FABRIC = Path("src/repro_torch/core/fabric.py")
 FAILURES = Path("src/repro_torch/core/failures.py")
 RECONF = Path("src/repro_torch/core/reconfigure.py")
 MATCHING = Path("src/repro_torch/core/matching.py")
+LAYERS = Path("src/repro_torch/models/layers.py")
+SERVE = Path("src/repro_torch/launch/serve.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
           "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c",
-          "phase 22a", "phase 22b")
+          "phase 22a", "phase 22b", "phase B", "phase C", "phase D")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -196,6 +203,22 @@ FAULTS = {
         MATCHING, "    left, right = range(n), range(n, 2 * n)",
         "    left, right = range(n - 1, -1, -1), range(n, 2 * n)",
         ("phase 21a",)),
+    # the cross-attention's keys rotated by the memory's positions, as
+    # self-attention's are (the reference rotates neither side)
+    "RoPE on the cross-attention's keys": (
+        LAYERS, "    return AttnCache(k, v, positions.to(torch.int32).contiguous())",
+        "    return AttnCache(rope(k, positions, cfg.rope_theta), v, "
+        "positions.to(torch.int32).contiguous())", ("phase C",)),
+    # the chunkwise mLSTM's row stabiliser leaves out the carried state's
+    # exponent, so a row whose state outweighs its chunk is scaled wrong
+    "mLSTM chunkwise stabiliser without the carried state": (
+        LAYERS, "m_row = torch.maximum(D.amax(2), b)", "m_row = D.amax(2)",
+        ("phase B",)),
+    # a vision model decodes from the prompt's length, as the reference's
+    # serve does, not past its patches
+    "vision prefix left out of the decode index": (
+        SERVE, "    pos = prefix_len(cfg) + prompt_len",
+        "    pos = prompt_len", ("phase D",)),
 }
 CHECKS = """
 import sys, torch
@@ -261,7 +284,10 @@ for phase, check in (("phase 18", lambda: cs.check_service(
                      ("phase 21c", lambda: cs.check_fleet(
                          dev, profile=False)),
                      ("phase 22a", lambda: cs.check_reconfigure_fleet(dev)),
-                     ("phase 22b", lambda: cs.check_sharded(dev))):
+                     ("phase 22b", lambda: cs.check_sharded(dev)),
+                     ("phase B", lambda: cs.check_xlstm_vs_cpu(dev)),
+                     ("phase C", lambda: cs.check_seamless_vs_plain(dev)),
+                     ("phase D", lambda: cs.check_llava(dev))):
     if phase in phases:
         try:
             print(phase, check())

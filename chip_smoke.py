@@ -69,12 +69,18 @@ Phases, each fatal on failure:
    past flash attention's tiles). The scan also at the edges of its time
    tiles and channel stripes, with channels whose carry outlives many
    tiles, per channel as well as whole, and for one call captured in a
-   CUDA graph and replayed twice on new inputs. A NaN fails every limit.
+   CUDA graph and replayed twice on new inputs. The attention kernels also
+   at the shapes of phases C and D: Seamless's (hd 64, one kv head a q
+   head) bidirectional encoder, causal decoder and cross-attention (3,072
+   queries over 1,024 frames), LLaVA's prefill (G = 7 at hd 128, 4,096
+   positions), and their decode (the cross-attention's with every slot
+   visible). A NaN fails every limit.
 8. Time them as phase 3 does, beside their bounds, their plain versions
    and ``scaled_dot_product_attention`` on the same inputs (the scan beside
    one elementwise kernel that moves the same bytes); flash attention
    at both models' prefill shapes (Qwen3-30B-A3B's beside SDPA's own causal
-   mask), flash-decode at both models' decode shapes.
+   mask), flash-decode at both models' decode shapes; both kernels at the
+   shapes of phases C and D.
 9. Serve RecurrentGemma-9B at full width and depth (38 layers, random
    weights from a seed) through ``repro_torch.launch.serve.serve``: batch
    4, 8 requests (so slots are refilled), prompts of 3,072 tokens, 32 new
@@ -205,6 +211,30 @@ Phases, each fatal on failure:
    and counter, ``check_sharding`` clean, both fabric
    kernels launched one run's count on every rank; slices/s per rank
    count, exchanges and bytes exchanged a slice.
+
+A. ``simulate_eqo`` at fig12's six update intervals (25 to 800 ns, 200,000
+   ns, seed 0) on the card against the port's CPU run: the largest errors
+   equal, the means within 1e-12 relative; fig12's two properties; the
+   wall ms of each.
+B. Serve xLSTM-350M at full width and depth (24 mLSTM / sLSTM blocks,
+   random weights) as phase 9 serves RecurrentGemma-9B: no kernel of the
+   port is on this path (every count 0). The sLSTM blocks' share of a
+   prefill (each block synchronised) and the kernels one block launches
+   (profiler). One mLSTM and one sLSTM block at full width: the mLSTM's
+   chunkwise form against its parallel form and its recurrent steps on the
+   card; a prefill (B = 2, L = 512) and 4 decode steps on the card against
+   the same weights and tokens on the CPU.
+C. Serve Seamless-M4T-large-v2 at full width and depth (24 encoder and 24
+   decoder layers, 1,024 audio frames): 72 flash launches a prefill (24
+   encoder, 24 decoder, 24 cross) and 48 flash-decode launches a step; the
+   encoder's share of a prefill; 2 + 2 layers through the kernels against
+   the plain versions (prefill B = 4, L = 3,072, 8 decode steps); one
+   decoder layer's cross-attention against a plain computation.
+D. Serve LLaVA-NeXT-34B at full width, 4 of its 60 layers (1,024 vision
+   patches before each 3,072-token prompt, a 4,224-slot cache): 4 flash
+   launches a prefill, 4 flash-decode a step; the serve's first decode
+   step against the prefill of the prompt and its token; 4 layers through
+   the kernels against the plain versions (B = 2).
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -681,9 +711,47 @@ DECODE_FULL = dict(B=4, Hq=16, Kv=1, S=2048, hd=256, cur=3100,
 # window, its last 995 slots still empty
 DECODE_QWEN = dict(B=4, Hq=32, Kv=4, S=4096, hd=128, cur=3100, kw=dict())
 RGLRU_FULL = dict(B=4, L=3072, W=4096)
+# the attention shapes of phases C and D at B = 4: Seamless-M4T-large-v2
+# (16 heads of 64, no GQA) at its encoder (1,024 audio frames,
+# bidirectional), its decoder's prefill (3,072 tokens, causal) and its
+# cross-attention (3,072 queries over the 1,024-frame memory);
+# LLaVA-NeXT-34B's prefill (1,024 patches + 3,072 tokens, causal, 56 q / 8
+# kv heads of 128)
+FLASH_NEW = {
+    "seamless_enc": dict(B=4, Hq=16, Hkv=16, L=1024, S=1024, hd=64,
+                         causal=False),
+    "seamless_dec": dict(B=4, Hq=16, Hkv=16, L=3072, S=3072, hd=64,
+                         causal=True),
+    "seamless_cross": dict(B=4, Hq=16, Hkv=16, L=3072, S=1024, hd=64,
+                           causal=False),
+    "llava": dict(B=4, Hq=56, Hkv=8, L=4096, S=4096, hd=128, causal=True),
+}
+# a query index at or past every position: the cross-attention's decode
+# sees every slot of the memory (repro_torch.models.layers.ALL_POSITIONS)
+ALL_POSITIONS = 2 ** 31 - 1
+# their decode: Seamless's self-attention over a 4,096-slot cache at
+# position 3,100 and its cross-attention over the 1,024-frame memory (slot
+# j at position j, every slot visible); LLaVA's over phase D's 4,224-slot
+# cache at 4,120 (past the prefix and the prompt)
+DECODE_NEW = {
+    "seamless_dec": dict(B=4, Hq=16, Kv=16, S=4096, hd=64, cur=3100,
+                         index=3100),
+    "seamless_cross": dict(B=4, Hq=16, Kv=16, S=1024, hd=64, cur=1023,
+                           index=ALL_POSITIONS),
+    "llava": dict(B=4, Hq=56, Kv=8, S=4224, hd=128, cur=4120, index=4120),
+}
 # bf16 tolerance of tests/test_kernels.py, held per row (row_relerr)
 FLASH_TOL = DECODE_TOL = 2e-2
 RGLRU_TOL = 1e-4                # f32 scan tolerance of tests/test_kernels.py
+
+
+def flash_plain_by_batch(q, k, v, B, **kw):
+    """The plain version, one batch row at a time (the whole score matrix
+    of LLaVA's prefill at B = 4 would take 15 GB in float32)."""
+    from repro_torch.kernels import flash_attention as fa
+    return torch.cat([fa.flash_attention_plain(*(x.chunk(B)[b] for x in
+                                                 (q, k, v)), **kw)
+                      for b in range(B)])
 
 
 def check_flash(dev):
@@ -716,12 +784,18 @@ def check_flash(dev):
         ("L=300 S=1000 q_offset 700 hd128 window 500", 2, 8, 1, 300, 1000,
          128, dict(causal=True, window=500, q_offset=700)),
     ]
+    # phases C and D's shapes (the hd-64 tiles with one kv head a q head)
+    cases += [(f"{tag} B={c['B']} L={c['L']} S={c['S']} Hq{c['Hq']} "
+               f"Hkv{c['Hkv']} hd{c['hd']} "
+               + ("causal" if c["causal"] else "non-causal"), c["B"], c["Hq"],
+               c["Hkv"], c["L"], c["S"], c["hd"], dict(causal=c["causal"]))
+              for tag, c in FLASH_NEW.items()]
     worst = worst_abs = 0.0
     for i, (name, B, Hq, Hkv, L, S, hd, kw) in enumerate(cases):
         q, k, v = flash_inputs(dev, B, Hq, Hkv, L, S, hd, seed=10 + i)
         got = fa.flash_attention(q, k, v, n_q_heads=Hq, n_kv_heads=Hkv, **kw)
-        want = fa.flash_attention_plain(q, k, v, n_q_heads=Hq,
-                                        n_kv_heads=Hkv, **kw)
+        want = flash_plain_by_batch(q, k, v, B, n_q_heads=Hq, n_kv_heads=Hkv,
+                                    **kw)
         torch.cuda.synchronize()
         e, ea = row_relerr(got, want), abserr(got, want)
         log(f"  flash_attention {name}: row relerr {e:.2e}, max abs err {ea:.2e}")
@@ -761,14 +835,21 @@ def check_decode(dev):
         ("hd512, 64-slot tiles, one-tile ring", 16, 8, 8, 768, 512, 900,
          dict(), None),
     ]
+    cases = [c + (c[6],) for c in cases]      # the query at the last write
+    # phases C and D's shapes; the cross-attention's query index past
+    # every position
+    cases += [(f"{tag} B={c['B']} S={c['S']} Hq{c['Hq']} Kv{c['Kv']} "
+               f"hd{c['hd']} index {c['index']}", c["B"], c["Hq"], c["Kv"],
+               c["S"], c["hd"], c["cur"], dict(), None, c["index"])
+              for tag, c in DECODE_NEW.items()]
     worst = worst_abs = 0.0
-    for i, (name, B, Hq, Kv, S, hd, cur, kw, one) in enumerate(cases):
+    for i, (name, B, Hq, Kv, S, hd, cur, kw, one, index) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(30 + i)
         q = torch.randn(B, Hq, hd, generator=g, device=dev).to(torch.bfloat16)
         kc, vc, pos = ring_cache(dev, B, S, Kv, hd, cur, 40 + i, one)
-        got = da.decode_attention(q, kc, vc, pos, cur, n_q_heads=Hq,
+        got = da.decode_attention(q, kc, vc, pos, index, n_q_heads=Hq,
                                   n_kv_heads=Kv, **kw)
-        want = da.decode_attention_plain(q, kc, vc, pos, cur, n_q_heads=Hq,
+        want = da.decode_attention_plain(q, kc, vc, pos, index, n_q_heads=Hq,
                                          n_kv_heads=Kv, **kw)
         torch.cuda.synchronize()
         e, ea = row_relerr(got, want), abserr(got, want)
@@ -947,6 +1028,50 @@ def time_lm_kernels(dev):
     qwen_bound = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                        4 * hd * qwen_pairs * B * Hq, TC_BF16_FLOPS_PER_S)
     del q, k, v, q4, k4, v4
+    new_bounds = {}
+    # phases C and D's shapes beside SDPA (its own causal mask, none for
+    # the bidirectional ones)
+    for tag, c in FLASH_NEW.items():
+        B, Hq, Hkv, L, S, hd = (c[x] for x in ("B", "Hq", "Hkv", "L", "S",
+                                               "hd"))
+        q, k, v = flash_inputs(dev, B, Hq, Hkv, L, S, hd, seed=66)
+        fkw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=c["causal"])
+        t[f"flash_{tag}_ms"] = graph_ms(lambda: fa.flash_attention(q, k, v,
+                                                                   **fkw))
+        t[f"flash_{tag}_plain_ms"] = graph_ms(
+            lambda: flash_plain_by_batch(q, k, v, B, **fkw), calls=1,
+            repeats=3)
+        q4, k4, v4 = (x.view(B, -1, x.shape[1], hd) for x in (q, k, v))
+        t[f"flash_{tag}_sdpa_ms"] = graph_ms(
+            lambda: Fn.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=c["causal"], enable_gqa=True))
+        pairs_new = L * (L + 1) // 2 if c["causal"] else L * S
+        new_bounds[f"flash_{tag}"] = bound(
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * hd * pairs_new * B * Hq, TC_BF16_FLOPS_PER_S)
+        del q, k, v, q4, k4, v4
+    for tag, c in DECODE_NEW.items():
+        B, Hq, Kv, S, hd, cur, idx = (c[x] for x in ("B", "Hq", "Kv", "S",
+                                                      "hd", "cur", "index"))
+        g = torch.Generator(device=dev).manual_seed(67)
+        qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(torch.bfloat16)
+        kc, vc, pos = ring_cache(dev, B, S, Kv, hd, cur, 68)
+        dkw = dict(n_q_heads=Hq, n_kv_heads=Kv)
+        t[f"decode_{tag}_ms"] = graph_ms(
+            lambda: da.decode_attention(qd, kc, vc, pos, idx, **dkw))
+        t[f"decode_{tag}_plain_ms"] = graph_ms(
+            lambda: da.decode_attention_plain(qd, kc, vc, pos, idx, **dkw))
+        valid = da.valid_slots(pos, idx, 0)
+        kd4, vd4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+        t[f"decode_{tag}_sdpa_ms"] = graph_ms(
+            lambda: Fn.scaled_dot_product_attention(
+                qd[:, :, None, :], kd4, vd4,
+                attn_mask=valid[:, None, None, :], enable_gqa=True))
+        n_valid = int(valid.sum())
+        new_bounds[f"decode_{tag}"] = bound(
+            2 * 2 * qd.numel() + 4 * pos.numel() + 2 * 2 * n_valid * Kv * hd,
+            4 * hd * n_valid * Hq, TC_BF16_FLOPS_PER_S)
+        new_bounds[f"decode_{tag}"]["valid_slots"] = n_valid
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 8 LM kernel timing (ms per call, median): "
@@ -954,7 +1079,8 @@ def time_lm_kernels(dev):
     bounds = dict(
         flash=bound(flash_bytes, flash_flops, TC_BF16_FLOPS_PER_S),
         flash_qwen=qwen_bound,
-        rg_lru=bound(rg_bytes, rg_ops, CORE_OPS_PER_S), **decode_bounds)
+        rg_lru=bound(rg_bytes, rg_ops, CORE_OPS_PER_S), **decode_bounds,
+        **new_bounds)
     log(f"  bounds: {json.dumps(bounds)} (flash pairs {pairs})")
     return t, bounds
 
@@ -1098,17 +1224,19 @@ def lm_kernel_modules():
     return fa, da, rl, gm
 
 
-def run_serve(dev, arch):
-    """Serve ``arch`` at full width and depth on the card; the kernel
-    counts are zeroed just before and read just after. Returns (serve
-    result, launch counts, prefills, decode steps, peak GiB, wall s)."""
+def run_serve(dev, arch, n_layers=None, **over):
+    """Serve ``arch`` at full width (and depth, unless ``n_layers`` cuts
+    it) on the card with ``SERVE_ARGS`` (``over`` replaces some); the
+    kernel counts are zeroed just before and read just after. Returns
+    (serve result, launch counts, prefills, decode steps, peak GiB, wall s,
+    the decode steps' indices)."""
     from repro_torch.kernels import admission as adm
     from repro_torch.kernels import time_flow_lookup as tfl
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
     fa, da, rl, gm = lm_kernel_modules()
-    calls = dict(prefill=0, decode=0)
-    orig = Model.prefill, Model.decode_step
+    calls = dict(prefill=0, decode=0, indices=[])
+    orig = Model.prefill, Model.decode_step, serve_mod.get_config
 
     def prefill(self, *a):
         calls["prefill"] += 1
@@ -1116,23 +1244,29 @@ def run_serve(dev, arch):
 
     def decode_step(self, *a):
         calls["decode"] += 1
+        calls["indices"].append(int(a[3]))
         return orig[1](self, *a)
 
     Model.prefill, Model.decode_step = prefill, decode_step
+    if n_layers is not None:
+        serve_mod.get_config = lambda name: dataclasses.replace(
+            orig[2](name), n_layers=n_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tfl.launches = adm.launches = 0
     fa.launches = da.launches = rl.launches = gm.launches = 0
     t0 = time.perf_counter()
     try:
-        res = serve(arch=arch, preset="full", **SERVE_ARGS, device="cuda")
+        res = serve_mod.serve(arch=arch, preset="full",
+                              **dict(SERVE_ARGS, **over), device="cuda")
     finally:
-        Model.prefill, Model.decode_step = orig
+        Model.prefill, Model.decode_step, serve_mod.get_config = orig
     wall = time.perf_counter() - t0
     counts = dict(flash=fa.launches, decode=da.launches, rg_lru=rl.launches,
                   gmm=gm.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return res, counts, calls["prefill"], calls["decode"], peak, wall
+    return (res, counts, calls["prefill"], calls["decode"], peak, wall,
+            calls["indices"])
 
 
 SERVE_ARGS = dict(requests=8, batch=4, prompt_len=3072, max_new=32,
@@ -1175,10 +1309,11 @@ class plain_versions:
 
 
 def model_vs_plain(dev, cfg, B, L, *, init_seed, prompt_seed, steps=8,
-                   cache_len=4096):
+                   cache_len=4096, frontend_embeds=None):
     """Prefill of a B x L prompt + ``steps`` greedy decode steps through
     the kernels, then the same tokens through the plain versions, on one set
-    of weights.
+    of weights (with ``frontend_embeds`` for a model with a frontend; a
+    vision prefix moves the decode steps past it).
 
     MoE layers: the plain run takes the experts the kernel run's router
     picked (with gates from its own logits at those experts), so both runs
@@ -1191,11 +1326,13 @@ def model_vs_plain(dev, cfg, B, L, *, init_seed, prompt_seed, steps=8,
     layers)."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as ly
+    from repro_torch.models.stacks import prefix_len
     model = build_model(cfg)
     params = model.init(init_seed, dev)
     rng = np.random.default_rng(prompt_seed)
     prompt = torch.tensor(rng.integers(2, cfg.vocab, (B, L)), device=dev)
     route = ly.moe_route
+    start = prefix_len(cfg) + L
 
     def run(tokens=None, forced=None):
         picks, marks, flips = [], [], []
@@ -1213,15 +1350,18 @@ def model_vs_plain(dev, cfg, B, L, *, init_seed, prompt_seed, steps=8,
 
         ly.moe_route = recorded
         try:
-            logits, cache = model.prefill(params, prompt,
-                                          model.init_cache(B, cache_len, dev))
+            logits, cache = model.prefill(
+                params, prompt, model.init_cache(
+                    B, cache_len, dev, enc_len=cfg.frontend_tokens or None),
+                frontend_embeds)
             marks.append(len(picks))
             out, toks = [logits[:, -1]], []
             for i in range(steps):
                 tok = (logits[:, -1].argmax(-1) if tokens is None
                        else tokens[i])[:, None]
                 toks.append(tok[:, 0])
-                logits, cache = model.decode_step(params, tok, cache, L + i)
+                logits, cache = model.decode_step(params, tok, cache,
+                                                  start + i)
                 marks.append(len(picks))
                 out.append(logits[:, -1])
         finally:
@@ -2756,6 +2896,422 @@ def check_sharded(dev) -> dict:
     return out
 
 
+# -- phases A-D: EQO and the last model families ---------------------------------
+
+EQO_INTERVALS = (25, 50, 100, 200, 400, 800)    # fig12's update intervals, ns
+EQO_TOTAL_NS = 200_000
+
+
+def check_eqo(dev) -> dict:
+    """Phase A: ``simulate_eqo`` at fig12's intervals on the card against
+    the port's CPU run (both exact in float64: the maxima equal, the means
+    within 1e-12 relative), and fig12's two properties."""
+    from repro_torch.core import simulate_eqo
+    rows = {}
+    for iv in EQO_INTERVALS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = simulate_eqo(iv, EQO_TOTAL_NS, device=dev)   # ends on the host
+        wall = (time.perf_counter() - t0) * 1e3
+        want = simulate_eqo(iv, EQO_TOTAL_NS, device="cpu")
+        rel = abs(got["err_mean_bytes"] - want["err_mean_bytes"]) / \
+            want["err_mean_bytes"]
+        rows[iv] = dict(err_max_bytes=got["err_max_bytes"],
+                        err_mean_bytes=got["err_mean_bytes"], wall_ms=wall,
+                        mean_relerr_vs_cpu=rel)
+        log(f"phase A eqo {iv} ns: err_max {got['err_max_bytes']} B "
+            f"(CPU {want['err_max_bytes']}), err_mean "
+            f"{got['err_mean_bytes']!r} B (relerr vs CPU {rel:.1e}), "
+            f"{wall:.2f} ms")
+        if got["err_max_bytes"] != want["err_max_bytes"] or not rel <= 1e-12:
+            raise SystemExit(f"eqo {iv} ns: the card's run is not the CPU's")
+    if not (rows[50]["err_max_bytes"] <= 750 and
+            rows[50]["err_max_bytes"] < rows[800]["err_max_bytes"]):
+        raise SystemExit(f"eqo: fig12's properties fail: {rows}")
+    return rows
+
+
+# phase B limits. XLSTM_FORMS_TOL: the largest error of the mLSTM block's
+# chunkwise output (L = 512, chunks of 256) against its parallel form and
+# its recurrent steps, over the largest |output|: sound 4.26e-3 to 7.63e-3;
+# the chunkwise row stabiliser without the carried state reads 1.01.
+# XLSTM_CPU_*: the 2-block model's logits on the card against the CPU's,
+# as phase 10 reads them: sound 4.67e-3 to 5.92e-3 (max) and 3.92e-3 to
+# 5.15e-3 (RMS) per step; the mLSTM's recurrent step without its
+# stabiliser's carry, on the card only, 0.106 to 0.331 and 7.82e-2 to
+# 0.224 at every decode step (PERF.md §2)
+XLSTM_FORMS_TOL = 3e-2
+XLSTM_CPU_TOL = 2.5e-2
+XLSTM_CPU_RMS_TOL = 2e-2
+# phase C limits, 2 + 2 layers through the kernels against the plain
+# versions: sound 1.13e-2 to 1.48e-2 (max) and 1.18e-2 to 1.28e-2 (RMS) per
+# step; flash-decode missing the last 64 positions reads 0.109 to 0.207 and
+# 0.112 to 0.147 at every decode step, flash causal on every call 0.89 to
+# 1.04. CROSS_TOL, the cross-attention against plain_cross: sound 5.78e-3
+# (3,072 queries) and 1.98e-3 (one); RoPE on its keys 0.97 and 0.88
+SEAMLESS_TOL = 4e-2
+SEAMLESS_RMS_TOL = 3.5e-2
+CROSS_TOL = 5e-2
+# phase D limits, 4 layers through the kernels against the plain versions:
+# sound 9.29e-3 to 1.44e-2 (max) and 9.52e-3 to 1.41e-2 (RMS); flash-decode
+# missing the last 64 positions 0.171 to 0.232 and 0.190 to 0.206 at every
+# decode step, flash with a 3,072-key window 6.69e-2 to 0.914 and 7.65e-2
+# to 0.819. INDEX_TOL, the first decode step against the prefill of the
+# prompt and its token: sound 1.23e-2 at 4,096; at the reference's 3,072,
+# 1.04 (PERF.md §2)
+LLAVA_TOL = 3e-2
+LLAVA_RMS_TOL = 3e-2
+INDEX_TOL = 5e-2
+LLAVA_SERVE = dict(cache_len=4224)     # 1,024 patches + 3,072 + 2 x 32
+LLAVA_LAYERS = 4
+
+
+def part_of_prefill(dev, arch, module, name, frontend=True, n_layers=None):
+    """One full-width prefill (B = 4, L = 3,072) of ``arch`` timed bare,
+    then again with every call of ``module.name`` synchronised and timed.
+    Returns (bare prefill ms, instrumented prefill ms, the calls' ms, the
+    number of calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    B, L = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    rng = np.random.default_rng(6)
+    prompt = torch.tensor(rng.integers(2, cfg.vocab, (B, L)), device=dev)
+    fe = frontend_embeds(dev, cfg, B, 7) if frontend else None
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt, model.init_cache(
+            B, SERVE_ARGS["cache_len"], dev,
+            enc_len=cfg.frontend_tokens or None), fe)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    prefill()                                       # warm
+    bare = prefill()
+    real, spent = getattr(module, name), []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(module, name, timed)
+    try:
+        inst = prefill()
+    finally:
+        setattr(module, name, real)
+    del params
+    return bare, inst, sum(spent), len(spent)
+
+
+def frontend_embeds(dev, cfg, B, seed):
+    """The stub frontend's embeddings, as ``serve`` draws them: standard
+    normals [B, frontend_tokens, frontend_dim] in bfloat16."""
+    from repro_torch.models.stacks import frontend_dim
+    x = np.random.default_rng(seed).normal(
+        size=(B, cfg.frontend_tokens, frontend_dim(cfg)))
+    return torch.tensor(x, dtype=torch.float32, device=dev).to(torch.bfloat16)
+
+
+def serve_line(tag, arch, res, n_prefill, n_decode, peak, wall, counts):
+    log(f"phase {tag} serve {arch}: {json.dumps(res)}; {n_prefill} prefills "
+        f"({res['prefill_s'] / n_prefill:.3f} s each), {n_decode} decode "
+        f"steps ({1e3 * res['decode_s'] / n_decode:.2f} ms each, "
+        f"{res['decode_tok_s']:.1f} tokens/s), wall {wall:.1f} s incl. "
+        f"init, peak {peak:.2f} GiB; launches {json.dumps(counts)}")
+
+
+def check_served(tag, res, counts, want):
+    if counts != want or res["requests_done"] != SERVE_ARGS["requests"] or \
+            res["decode_tokens"] <= 0:
+        raise SystemExit(f"phase {tag}: launches {counts} (want {want}), "
+                         f"result {res}")
+
+
+def check_mlstm_forms(dev, cfg, params) -> dict:
+    """The mLSTM block of ``params``' first layer at full width (B = 2, L
+    = 512): its chunkwise form (two chunks of 256, the serve path's)
+    against its parallel form and its recurrent steps on the card."""
+    from repro_torch.models import layers as ly
+    blk = params.layers[0].mlstm
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = params.layers[0].norm1(torch.randn(2, 512, cfg.d_model, generator=g,
+                                           device=dev).to(torch.bfloat16))
+    with torch.no_grad():
+        chunk, _ = ly.mlstm_apply(blk, x, cfg, state=ly.mlstm_state(
+            cfg, 2, dev))
+        par, _ = ly.mlstm_apply(blk, x, dataclasses.replace(
+            cfg, mlstm_chunk=0), state=ly.mlstm_state(cfg, 2, dev))
+        s, steps = ly.mlstm_state(cfg, 2, dev), []
+        for t in range(x.shape[1]):
+            h, s = ly.mlstm_apply(blk, x[:, t:t + 1], cfg, state=s)
+            steps.append(h)
+    errs = dict(parallel=relerr(chunk, par),
+                recurrent=relerr(chunk, torch.cat(steps, 1)),
+                parallel_vs_recurrent=relerr(par, torch.cat(steps, 1)))
+    log(f"phase B mLSTM forms at full width (B=2, L=512, chunks of "
+        f"{cfg.mlstm_chunk}): chunkwise vs parallel {errs['parallel']:.2e}, "
+        f"vs recurrent {errs['recurrent']:.2e}, parallel vs recurrent "
+        f"{errs['parallel_vs_recurrent']:.2e} (limit {XLSTM_FORMS_TOL:.0e})")
+    if max(errs.values()) > XLSTM_FORMS_TOL:
+        raise SystemExit("phase B: the mLSTM's three forms disagree")
+    return errs
+
+
+def check_xlstm_vs_cpu(dev) -> dict:
+    """One mLSTM and one sLSTM block at xLSTM-350M's width (random weights
+    from a seed, ``mlstm_chunk`` 256): the mLSTM's three forms on the card;
+    then a prefill (B = 2, L = 512: the chunkwise form) and 4 greedy decode
+    steps on the card, and the same weights and tokens on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, stacks
+    cfg = dataclasses.replace(get_config("xlstm-350m"), n_layers=2)
+    model = build_model(cfg)
+    params = model.init(1, dev)
+    forms = check_mlstm_forms(dev, cfg, params)
+    cpu = stacks.Stack(cfg, "cpu")
+    cpu.load_state_dict(params.state_dict())
+    B, L, steps = 2, 512, 4
+    prompt = np.random.default_rng(13).integers(2, cfg.vocab, (B, L))
+
+    def run(p, d, tokens=None):
+        logits, cache = model.prefill(p, torch.tensor(prompt, device=d),
+                                      model.init_cache(B, L + steps, d))
+        out, toks = [logits[:, -1]], []
+        for i in range(steps):
+            tok = (logits[:, -1].argmax(-1) if tokens is None
+                   else tokens[i].to(d))[:, None]
+            toks.append(tok[:, 0].cpu())
+            logits, cache = model.decode_step(p, tok, cache, L + i)
+            out.append(logits[:, -1])
+        return torch.stack(out).cpu(), toks
+
+    t0 = time.perf_counter()
+    got, toks = run(params, dev)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = run(cpu, torch.device("cpu"), toks)
+    t_cpu = time.perf_counter() - t0
+    log(f"phase B card vs CPU: prefill + {steps} steps {t_card:.2f} s on the "
+        f"card, {t_cpu:.2f} s on the CPU")
+    held = hold_model(f"phase B xlstm-350m card vs CPU (2 blocks, d 1024, "
+                      f"B={B}, L={L}, {steps} decode steps)", got, want,
+                      [0] * (steps + 1), XLSTM_CPU_TOL, XLSTM_CPU_RMS_TOL)
+    return dict(forms=forms, **held)
+
+
+def check_xlstm(dev) -> dict:
+    """Phase B: serve xLSTM-350M at full width and depth; the sLSTM
+    layers' share of a prefill and their launches; the card against the
+    CPU (``check_xlstm_vs_cpu``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as ly
+    arch = "xlstm-350m"
+    res, counts, n_prefill, n_decode, peak, wall, _ = run_serve(dev, arch)
+    serve_line("B", arch, res, n_prefill, n_decode, peak, wall, counts)
+    check_served("B", res, counts, dict(flash=0, decode=0, rg_lru=0, gmm=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    bare, inst, sl_ms, sl_calls = part_of_prefill(dev, arch, ly,
+                                                  "slstm_apply", False)
+    # the kernels one sLSTM block launches over a 3,072-token prompt
+    cfg = get_config(arch)
+    params = build_model(cfg).init(0, dev)
+    blk = params.layers[1].slstm
+    x = torch.randn(SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"],
+                    cfg.d_model, device=dev).to(torch.bfloat16)
+    ly.slstm_apply(blk, x, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ly.slstm_apply(blk, x, cfg)
+        torch.cuda.synchronize()
+    per_block = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and
+                    self_device_ms(e) > 0 and not e.key.startswith(
+                        ("Memcpy", "Memset")))
+    del params, blk, x
+    loops = dict(prefill_ms=bare, instrumented_prefill_ms=inst,
+                 slstm_ms=sl_ms, slstm_calls=sl_calls,
+                 slstm_share=sl_ms / inst, kernels_per_block=per_block,
+                 kernels_per_prefill=per_block * sl_calls,
+                 kernels_per_step=per_block / SERVE_ARGS["prompt_len"])
+    log(f"phase B sLSTM loops: a prefill {bare:.1f} ms ({inst:.1f} ms with "
+        f"each block synchronised), its {sl_calls} sLSTM blocks {sl_ms:.1f} "
+        f"ms ({sl_ms / inst:.1%}); {per_block} kernels a block "
+        f"({per_block / SERVE_ARGS['prompt_len']:.2f} a step), "
+        f"{per_block * sl_calls} a prefill")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(serve=res, launches=counts, prefills=n_prefill,
+                decode_steps=n_decode, peak_gib=peak, loops=loops,
+                vs_cpu=check_xlstm_vs_cpu(dev))
+
+
+def plain_cross(p, x, mem, cfg):
+    """Cross-attention written out in float32, as the reference defines
+    it: queries of x, keys and values of the memory, no rotation, every
+    key visible, one softmax; then the output projection."""
+    B, L, _ = x.shape
+    S, H, Kv = mem.shape[1], cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    q = (x @ p.wq).float().view(B, L, H, hd).transpose(1, 2)
+    k = (mem @ p.wk).float().view(B, S, Kv, hd).transpose(1, 2)
+    v = (mem @ p.wv).float().view(B, S, Kv, hd).transpose(1, 2)
+    k, v = (t.repeat_interleave(H // Kv, 1) for t in (k, v))
+    w = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), -1)
+    out = (w @ v).transpose(1, 2).reshape(B, L, H * hd).to(x.dtype)
+    return out @ p.wo
+
+
+def check_seamless_vs_plain(dev) -> dict:
+    """Seamless-M4T-large-v2 at full width, 2 encoder and 2 decoder
+    layers: prefill (B = 4, L = 3,072, 1,024 audio frames) + 8 greedy
+    decode steps through the kernels against the plain versions; and one
+    decoder layer's cross-attention (as the stack runs it: K/V of the
+    memory, then the queries through flash attention, or flash-decode for
+    one token) against ``plain_cross``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as ly
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              n_layers=2, n_enc_layers=2)
+    B, L = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    fe = frontend_embeds(dev, cfg, B, 14)
+    got, want, flips = model_vs_plain(dev, cfg, B, L, init_seed=1,
+                                      prompt_seed=8, frontend_embeds=fe)
+    held = hold_model(f"phase C seamless-m4t-large-v2 vs plain (2 + 2 "
+                      f"layers, d 1024, B={B}, L={L}, 8 decode steps)", got,
+                      want, flips, SEAMLESS_TOL, SEAMLESS_RMS_TOL)
+    layer = build_model(cfg).init(2, dev).layers[0]
+    g = torch.Generator(device=dev).manual_seed(15)
+    mem = torch.randn(B, cfg.frontend_tokens, cfg.d_model, generator=g,
+                      device=dev).to(torch.bfloat16)
+    pos = torch.arange(cfg.frontend_tokens, device=dev).expand(B, -1)
+    kv = ly.cross_kv(layer.xattn, mem, cfg, pos)
+    cross = {}
+    for Lq in (L, 1):
+        x = torch.randn(B, Lq, cfg.d_model, generator=g,
+                        device=dev).to(torch.bfloat16)
+        cross[f"Lq{Lq}"] = relerr(ly.cross_attend(layer.xattn, x, cfg, kv),
+                                  plain_cross(layer.xattn, x, mem, cfg))
+    log(f"phase C cross-attention against plain_cross: " + ", ".join(
+        f"{k} relerr {v:.2e}" for k, v in cross.items())
+        + f" (limit {CROSS_TOL:.0e})")
+    if max(cross.values()) > CROSS_TOL:
+        raise SystemExit("phase C: the cross-attention is not the plain one")
+    return dict(cross=cross, **held)
+
+
+def check_seamless(dev) -> dict:
+    """Phase C: serve Seamless-M4T-large-v2 at full width and depth (72
+    flash launches a prefill: 24 encoder, 24 decoder, 24 cross; 48
+    flash-decode a step: 24 self, 24 cross), the encoder's share of a
+    prefill, ``check_seamless_vs_plain``."""
+    from repro_torch.models import stacks
+    arch = "seamless-m4t-large-v2"
+    res, counts, n_prefill, n_decode, peak, wall, _ = run_serve(dev, arch)
+    serve_line("C", arch, res, n_prefill, n_decode, peak, wall, counts)
+    check_served("C", res, counts, dict(flash=72 * n_prefill,
+                                        decode=48 * n_decode, rg_lru=0,
+                                        gmm=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    bare, inst, enc_ms, _ = part_of_prefill(dev, arch, stacks, "_encoder")
+    log(f"phase C encoder: a prefill {bare:.1f} ms ({inst:.1f} ms with the "
+        f"encoder synchronised), the encoder {enc_ms:.1f} ms "
+        f"({enc_ms / inst:.1%})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(serve=res, launches=counts, prefills=n_prefill,
+                decode_steps=n_decode, peak_gib=peak,
+                encoder=dict(prefill_ms=bare, instrumented_prefill_ms=inst,
+                             encoder_ms=enc_ms, share=enc_ms / inst),
+                vs_plain=check_seamless_vs_plain(dev))
+
+
+def check_decode_index(dev, index: int) -> float:
+    """LLaVA-NeXT-34B at full width, 4 layers (B = 2): a decode step at
+    ``index`` after the prefill of 1,024 patches and a 3,072-token prompt,
+    against the prefill of the prompt and that token (the model's
+    next-token logits). Returns the relative error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              n_layers=LLAVA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(3, dev)
+    B, L, S = 2, SERVE_ARGS["prompt_len"], LLAVA_SERVE["cache_len"]
+    fe = frontend_embeds(dev, cfg, B, 16)
+    toks = torch.tensor(np.random.default_rng(17).integers(
+        2, cfg.vocab, (B, L + 1)), device=dev)
+    _, cache = model.prefill(params, toks[:, :L],
+                             model.init_cache(B, S, dev), fe)
+    step, _ = model.decode_step(params, toks[:, L:], cache, index)
+    right, _ = model.prefill(params, toks, model.init_cache(B, S, dev), fe)
+    err = relerr(step[:, -1], right[:, -1])
+    log(f"phase D the serve's first decode step, at index {index} (prefix "
+        f"{cfg.frontend_tokens} + prompt {L}), against the prefill of the "
+        f"prompt and its token: relerr {err:.2e} (limit {INDEX_TOL:.0e})")
+    if err > INDEX_TOL:
+        raise SystemExit("phase D: the serve's decode index does not give "
+                         "the next-token logits")
+    return err
+
+
+def check_llava_vs_plain(dev) -> dict:
+    """LLaVA-NeXT-34B at full width, 4 layers: prefill (B = 2, 1,024
+    patches + 3,072 tokens) + 8 greedy decode steps through the kernels
+    against the plain versions."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              n_layers=LLAVA_LAYERS)
+    B, L = 2, SERVE_ARGS["prompt_len"]
+    got, want, flips = model_vs_plain(
+        dev, cfg, B, L, init_seed=1, prompt_seed=9,
+        frontend_embeds=frontend_embeds(dev, cfg, B, 18),
+        cache_len=LLAVA_SERVE["cache_len"])
+    return hold_model(f"phase D llava-next-34b vs plain ({LLAVA_LAYERS} "
+                      f"layers, d 7168, B={B}, L={cfg.frontend_tokens} + {L},"
+                      f" 8 decode steps)", got, want, flips, LLAVA_TOL,
+                      LLAVA_RMS_TOL)
+
+
+def check_llava(dev) -> dict:
+    """Phase D: LLaVA-NeXT-34B at full width, 4 layers: serve (the cache
+    holds 1,024 patches, the 3,072-token prompt and both rounds' 32
+    tokens), ``check_decode_index`` at the index of the serve's first
+    decode step, ``check_llava_vs_plain``."""
+    arch = "llava-next-34b"
+    res, counts, n_prefill, n_decode, peak, wall, idx = run_serve(
+        dev, arch, n_layers=LLAVA_LAYERS, **LLAVA_SERVE)
+    serve_line(f"D ({LLAVA_LAYERS} layers)", arch, res, n_prefill, n_decode,
+               peak, wall, counts)
+    check_served("D", res, counts, dict(flash=LLAVA_LAYERS * n_prefill,
+                                        decode=LLAVA_LAYERS * n_decode,
+                                        rg_lru=0, gmm=0))
+    out = dict(serve=res, launches=counts, prefills=n_prefill,
+               decode_steps=n_decode, peak_gib=peak, first_index=idx[0])
+    for key, check in (("index_relerr", lambda: check_decode_index(
+            dev, idx[0])), ("vs_plain", lambda: check_llava_vs_plain(dev))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -3085,7 +3641,7 @@ def main() -> int:
     lm_t, lm_bounds = time_lm_kernels(dev)
 
     # -- 9. serve RecurrentGemma-9B at full width and depth ------------------------
-    res, serve_counts, n_prefill, n_decode, peak, wall = run_serve(
+    res, serve_counts, n_prefill, n_decode, peak, wall, _ = run_serve(
         dev, "recurrentgemma-9b")
     log(f"phase 9 serve recurrentgemma-9b full: {json.dumps(res)}; "
         f"{n_prefill} prefills ({res['prefill_s'] / n_prefill:.3f} s each), "
@@ -3124,7 +3680,7 @@ def main() -> int:
     free, total = torch.cuda.mem_get_info()
     log(f"phase 14 before loading qwen3-moe-30b-a3b: {free / 2 ** 30:.2f} of "
         f"{total / 2 ** 30:.2f} GiB free")
-    qres, qwen_counts, q_prefill, q_decode, q_peak, q_wall = run_serve(
+    qres, qwen_counts, q_prefill, q_decode, q_peak, q_wall, _ = run_serve(
         dev, "qwen3-moe-30b-a3b")
     log(f"phase 14 serve qwen3-moe-30b-a3b full: {json.dumps(qres)}; "
         f"{q_prefill} prefills ({qres['prefill_s'] / q_prefill:.3f} s each), "
@@ -3275,6 +3831,20 @@ def main() -> int:
             "clean, both kernels launched on every rank")
     log(f"phase 22 ({time.perf_counter() - t22:.1f} s, (b) "
         f"{time.perf_counter() - t22b:.1f} s; {smi})")
+
+    # -- A-D. EQO and the last model families ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tA = time.perf_counter()
+    eqo = check_eqo(dev)
+    tB = time.perf_counter()
+    xlstm = check_xlstm(dev)
+    tC = time.perf_counter()
+    seamless = check_seamless(dev)
+    tD = time.perf_counter()
+    llava = check_llava(dev)
+    log(f"phases A-D ({smi}): A {tB - tA:.1f} s, B {tC - tB:.1f} s, C "
+        f"{tD - tC:.1f} s, D {time.perf_counter() - tD:.1f} s")
 
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
@@ -3435,8 +4005,17 @@ def main() -> int:
                 for key in gmm_bounds}))
     for k in kernels:
         if k["name"] in ("flash_attention", "decode_attention"):
-            k["qwen_launches"] = qwen_counts["flash" if k["name"] ==
-                                             "flash_attention" else "decode"]
+            key = "flash" if k["name"] == "flash_attention" else "decode"
+            k["qwen_launches"] = qwen_counts[key]
+            k["seamless_launches"] = seamless["launches"][key]
+            k["llava_launches"] = llava["launches"][key]
+            k["xlstm_launches"] = xlstm["launches"][key]
+            shapes = FLASH_NEW if key == "flash" else DECODE_NEW
+            k["new_shapes"] = {
+                tag: dict(ms=lm_t[f"{key}_{tag}_ms"],
+                          plain_ms=lm_t[f"{key}_{tag}_plain_ms"],
+                          library_ms=lm_t[f"{key}_{tag}_sdpa_ms"],
+                          **lm_bounds[f"{key}_{tag}"]) for tag in shapes}
         if k["name"] == "flash_attention":
             k["qwen_shape"] = dict(ms=lm_t["flash_qwen_ms"],
                                    plain_ms=lm_t["flash_qwen_plain_ms"],

@@ -6,7 +6,8 @@ routing (time-flow table compilation), timeflow (entry-level time-flow
 tables), traces (synthetic workloads), failures (fault traces and their
 masks, table repair, fast reroute), controlplane (clock skew, install
 delay and loss, controller stalls), guardband (the §7 minimum-slice
-derivation), toolkit (packet traces and table, telemetry and sharding
+derivation), eqo (the queue-occupancy estimator of Fig. 12, on
+the device, with its own JAX-compatible threefry in prng), toolkit (packet traces and table, telemetry and sharding
 checkers). Data plane (PyTorch on one device): fabric (calendar queues,
 congestion detection, push-back, offloading, failure and control masks,
 telemetry counters, one-shot and incremental runs, scenario sweeps,
@@ -41,6 +42,7 @@ from .controlplane import (ControlEvent, ControlTrace, ControlMasks,
                            install_schedule)
 from .traces import synthesize, flow_fcts, TRACES
 from .guardband import GuardbandInputs, derive as derive_guardband
+from .eqo import simulate_eqo
 from . import routing_jnp, toolkit, topology_jnp
 
 __all__ = [
@@ -64,6 +66,6 @@ __all__ = [
     "ControlEvent", "ControlTrace", "ControlMasks", "compile_control",
     "random_control_trace", "install_schedule",
     "synthesize", "flow_fcts", "TRACES",
-    "GuardbandInputs", "derive_guardband", "toolkit", "routing_jnp",
+    "GuardbandInputs", "derive_guardband", "simulate_eqo", "toolkit", "routing_jnp",
     "topology_jnp",
 ]

@@ -7,15 +7,29 @@ prompt tiled over the batch, and the slot's part of the result is merged
 into the running cache. Reports prefill and per-token decode
 latency/throughput, in the reference's dict.
 
-One difference: the refill merges every per-slot tensor of the cache along
-its batch axis (``k``, ``v`` and ``pos`` of the attention layers, the
-RG-LRU state and the conv state of the ``rec`` layers), from a prefill into
-a fresh cache, so a refilled slot holds exactly a fresh prefill of its
-prompt. The reference merges only leaves with ``ndim >= 4`` along axis -4,
-which misses ``pos`` and the RG-LRU state and merges the conv state along
-the group axis (ROADMAP Queue 3).
+A model with a frontend gets the reference's stub embeddings: ``[batch,
+frontend_tokens, frontend_dim]`` standard normals from the request
+generator (after the prompts), in bfloat16, passed to every prefill.
 
-Example (on the card):
+Two differences:
+
+* the refill merges every per-slot tensor of the cache along its batch
+  axis (``k``, ``v`` and ``pos`` of the attention layers and of a ``dec``
+  layer's cross part, the RG-LRU, mLSTM and sLSTM states, the conv state),
+  from a prefill into a fresh cache, so a refilled slot holds exactly a
+  fresh prefill of its prompt. The reference merges only leaves with
+  ``ndim >= 4`` along axis -4, which misses ``pos``, the RG-LRU and sLSTM
+  states and the mLSTM stabiliser, and merges the conv state and the mLSTM
+  normaliser along the group axis (ROADMAP Queue 3).
+* a vision model decodes from position ``frontend_tokens + prompt_len``,
+  past its patch prefix, and counts the prefix against ``cache_len``. The
+  reference decodes from ``prompt_len``: its first step reuses the
+  position of a prompt token, overwrites that token's cache slot and
+  cannot see the last ``frontend_tokens`` prompt tokens (ROADMAP Queue 3).
+
+Example (on the card; any config of ``repro_torch.configs``, e.g. also
+``xlstm-350m``, ``seamless-m4t-large-v2`` or ``llava-next-34b``, whose
+1,024 patches count against ``--cache-len``):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --preset full --requests 8 --batch 4 \
         --prompt-len 3072 --max-new 32 --cache-len 4096
@@ -33,29 +47,39 @@ from ..configs import get_config
 from ..core.fabric import resolve_device
 from ..models import build_model
 from ..models.layers import AttnCache
+from ..models.stacks import frontend_dim, prefix_len
 
-__all__ = ["serve", "main", "merge_slot", "refill_slot"]
+__all__ = ["serve", "main", "merge_slot", "refill_slot", "cache_leaves"]
+
+
+def cache_leaves(cache) -> list:
+    """Every tensor of a cache (a list of per-layer entries: ``AttnCache``s
+    and tuples of them or of tensors), in order."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    if isinstance(cache, AttnCache):
+        return [cache.k, cache.v, cache.pos]
+    return [t for entry in cache for t in cache_leaves(entry)]
 
 
 def merge_slot(cache, new_cache, s: int) -> None:
     """Copy slot ``s`` of every per-slot tensor of ``new_cache`` into
     ``cache``, in place: the batch is axis 0 of every one of them."""
-    for old, new in zip(cache, new_cache):
-        pairs = (zip((old.k, old.v, old.pos), (new.k, new.v, new.pos))
-                 if isinstance(old, AttnCache) else zip(old, new))
-        for a, b in pairs:
-            a[s] = b[s]
+    for a, b in zip(cache_leaves(cache), cache_leaves(new_cache),
+                    strict=True):
+        a[s] = b[s]
 
 
 def refill_slot(model, params, cache, s: int, prompt, batch: int,
-                cache_len: int):
+                cache_len: int, frontend_embeds=None):
     """Prefill ``prompt`` (tiled over the ``batch`` slots, into a fresh
     cache) and merge slot ``s`` of the result into ``cache``. Returns the
     slot's logits ``[1, V]`` for its first generated token."""
     dev = params.embed.device
     toks = torch.as_tensor(np.tile(prompt, (batch, 1)), device=dev)
-    logits, new_cache = model.prefill(
-        params, toks, model.init_cache(batch, cache_len, dev))
+    fresh = model.init_cache(batch, cache_len, dev,
+                             enc_len=model.cfg.frontend_tokens or None)
+    logits, new_cache = model.prefill(params, toks, fresh, frontend_embeds)
     merge_slot(cache, new_cache, s)
     return logits[s]
 
@@ -81,8 +105,14 @@ def serve(arch: str = "olmo-1b", preset: str = "tiny", requests: int = 12,
     rng = np.random.default_rng(seed)
     queue = [rng.integers(2, cfg.vocab, size=prompt_len).astype(np.int32)
              for _ in range(requests)]
+    fe = None
+    if cfg.frontend is not None:
+        fe = torch.tensor(rng.normal(size=(batch, cfg.frontend_tokens,
+                                           frontend_dim(cfg))),
+                          dtype=torch.float32, device=dev).to(torch.bfloat16)
 
-    cache = model.init_cache(batch, cache_len, dev)
+    cache = model.init_cache(batch, cache_len, dev,
+                             enc_len=cfg.frontend_tokens or None)
     lengths = np.zeros(batch, np.int64)      # generated tokens per slot
     active = np.zeros(batch, bool)
     done, t_prefill, t_decode, n_decoded = 0, 0.0, 0.0, 0
@@ -94,7 +124,7 @@ def serve(arch: str = "olmo-1b", preset: str = "tiny", requests: int = 12,
                 prompt = queue.pop(0)
                 t0 = time.time()
                 logits = refill_slot(model, params, cache, s, prompt,
-                                     batch, cache_len)
+                                     batch, cache_len, fe)
                 tok[s, 0] = logits[-1].argmax()
                 _sync(dev)
                 t_prefill += time.time() - t0
@@ -107,13 +137,13 @@ def serve(arch: str = "olmo-1b", preset: str = "tiny", requests: int = 12,
         first.append(np.zeros(prompt_len, np.int32))
     t0 = time.time()
     toks = torch.as_tensor(np.stack(first), device=dev)
-    logits, cache = model.prefill(params, toks, cache)
+    logits, cache = model.prefill(params, toks, cache, fe)
     tok = logits[:, -1].argmax(-1)[:, None]
     _sync(dev)
     t_prefill += time.time() - t0
     active[:] = True
 
-    pos = prompt_len
+    pos = prefix_len(cfg) + prompt_len
     while (done < requests and (active.any() or queue)) and pos < cache_len - 1:
         t0 = time.time()
         logits, cache = model.decode_step(params, tok, cache, pos)

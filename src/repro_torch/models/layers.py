@@ -27,8 +27,13 @@ Where the port differs from the reference:
   reference's einsum path rounds them to bfloat16 first.
 * the MoE layer has no expert-parallel (``shard_map``) branch: the port
   runs on one card.
-* cross-attention (``kv_src``) and the xLSTM blocks are not ported yet
-  (ROADMAP Queue 1 item 10).
+* cross-attention splits into :func:`cross_kv` (K and V of the encoder
+  memory, no RoPE) and :func:`cross_attend` (the queries against them), so
+  the stack projects the memory once at prefill and keeps its K and V in
+  the cache; the reference re-projects the memory at every decode step.
+  :func:`attn_apply` with ``kv_src`` runs both, as the reference does.
+* the xLSTM blocks (:func:`mlstm_apply`, :func:`slstm_apply`) have no TPU
+  kernel: they are torch ops, the sLSTM a Python loop over the sequence.
 """
 from __future__ import annotations
 
@@ -157,8 +162,9 @@ class Attention(nn.Module):
 def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
                causal: bool = True, window: int = 0,
                cache: AttnCache | None = None, write_index: int | None = None,
-               kv_src=None):
-    """Self-attention (GQA). Returns (out, new_cache).
+               kv_src=None, kv_positions=None):
+    """Self-attention (GQA), or cross-attention over ``kv_src``. Returns
+    (out, new_cache).
 
     x: [B, L, d]; positions: [B, L] absolute positions, consecutive along L
     (the stack's are ``0 .. L-1`` at prefill and the decode index at
@@ -168,11 +174,14 @@ def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
     position ``write_index`` (the reference's ``decode_step`` passes the
     same index as the position). Otherwise ``flash_attention`` attends over
     the sequence, and with a cache the last S positions land in a new one.
+
+    With ``kv_src`` [B, S, d] (the encoder memory, at ``kv_positions``), K
+    and V are projected from it and every query sees every key, with no
+    RoPE on either side and no cache, as in the reference.
     """
     if kv_src is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_src) waits for the enc-dec slice of the "
-            "port (ROADMAP Queue 1 item 10)")
+        return cross_attend(p, x, cfg, cross_kv(p, kv_src, cfg,
+                                                kv_positions)), None
     B, L, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p.wq).reshape(B, L, hq, hd)
@@ -225,6 +234,51 @@ def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
                                 softcap=cfg.attn_softcap, scale=scale)
     out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
     return out @ p.wo, new_cache
+
+
+# a query index at or past every position: decode_attention then sees every
+# slot that holds a position (the encoder memory's 0 .. S-1)
+ALL_POSITIONS = 2 ** 31 - 1
+
+
+def cross_kv(p: Attention, src, cfg: ArchConfig, positions) -> AttnCache:
+    """K and V of the encoder memory ``src`` [B, S, d] (no RoPE: the
+    reference rotates only self-attention) with its ``positions`` [B, S],
+    in the cache layout that :func:`cross_attend` reads."""
+    B, S, _ = src.shape
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    k = (src @ p.wk).reshape(B, S, hkv, hd)
+    v = (src @ p.wv).reshape(B, S, hkv, hd)
+    if cfg.qk_norm:
+        k = (_rms(k) * p.k_norm).to(src.dtype)
+    return AttnCache(k, v, positions.to(torch.int32).contiguous())
+
+
+def cross_attend(p: Attention, x, cfg: ArchConfig, kv: AttnCache):
+    """Queries of ``x`` [B, L, d] against every key of ``kv`` (non-causal,
+    no window, no RoPE). One token goes through ``decode_attention`` over
+    ``kv`` (every slot holding a position is visible), a sequence through
+    ``flash_attention`` with ``causal=False`` (Lq = L, S = the memory's
+    length)."""
+    B, L, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p.wq).reshape(B, L, hq, hd)
+    if cfg.qk_norm:
+        q = (_rms(q) * p.q_norm).to(x.dtype)
+    scale = cfg.attn_scale_override or (1.0 / math.sqrt(hd))
+    kw = dict(n_q_heads=hq, n_kv_heads=hkv, softcap=cfg.attn_softcap,
+              scale=scale)
+    if L == 1:
+        out = _decode.decode_attention(q[:, 0], kv.k, kv.v, kv.pos,
+                                       ALL_POSITIONS, **kw)
+        return out.reshape(B, 1, hq * hd) @ p.wo
+    S = kv.k.shape[1]
+    qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
+    kf = kv.k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
+    vf = kv.v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
+    of = _flash.flash_attention(qf, kf, vf, causal=False, **kw)
+    out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
+    return out @ p.wo
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, window: int = 0,
@@ -448,3 +502,225 @@ def rglru_state(cfg: ArchConfig, batch: int, device=None):
     return (torch.zeros((batch, w), dtype=torch.float32, device=device),
             torch.zeros((batch, cfg.conv_width, w), dtype=torch.bfloat16,
                         device=device))
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+class MLSTM(nn.Module):
+    """Matrix-memory LSTM block: up-projection to ``dp = d * proj_factor``,
+    q/k/v over ``n_heads`` heads of ``dp / n_heads``, float32 input and
+    forget gates (``w_if``), down-projection."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        d, bf = cfg.d_model, torch.bfloat16
+        dp = int(d * cfg.proj_factor)
+        self.w_up = _param((d, dp), bf, device)
+        self.w_gate = _param((d, dp), bf, device)
+        self.wq = _param((dp, dp), bf, device)
+        self.wk = _param((dp, dp), bf, device)
+        self.wv = _param((dp, dp), bf, device)
+        self.w_if = _param((dp, 2 * cfg.n_heads), torch.float32, device)
+        self.w_down = _param((dp, d), bf, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # the gates at 0.02, drawn in bfloat16 and kept in float32
+        for w in (self.w_up, self.w_gate, self.wq, self.wk, self.wv):
+            _dense_init_(w, gen)
+        _normal_(self.w_if, gen, 0.02)
+        self.w_if.copy_(self.w_if.to(torch.bfloat16))
+        _dense_init_(self.w_down, gen)
+
+
+def _causal_log_weights(F, i_pre):
+    """``D[b, t, s, h] = F_t - F_s + i_s`` for s <= t, -inf above the
+    diagonal: the log weight of step s's input in step t's memory.
+    F, i_pre: [B, L, H] float32 -> [B, L, L, H]."""
+    L = F.shape[1]
+    D = F[:, :, None, :] - F[:, None, :, :] + i_pre[:, None, :, :]
+    causal = torch.ones(L, L, dtype=torch.bool, device=F.device).tril()
+    return D.masked_fill(~causal[None, :, :, None], -math.inf)
+
+
+def mlstm_apply(p: MLSTM, x, cfg: ArchConfig, *, state=None):
+    """The reference's ``mlstm_apply``: x [B, L, d] -> (out, new_state),
+    the state ``(C [B, H, hd, hd], n [B, H, hd], m [B, H])`` float32.
+
+    Three forms, which agree as the reference's do: the chunkwise form
+    (L > 1, ``mlstm_chunk`` nonzero, L a multiple of it and longer), which
+    carries the state over chunks (from ``state`` when given); the
+    quadratic parallel form (otherwise, L > 1 or no state), which assumes a
+    zero initial state and, given a state, materialises the one after the
+    last token; and the recurrent step (L == 1 with a state). Projections
+    stay in x's dtype, gates and state in float32; the stabiliser ``m``
+    starts at -inf, and the parallel form's state maxes over a row with
+    -inf read as -1e30, as the reference does.
+    """
+    B, L, _ = x.shape
+    H = cfg.n_heads
+    up = x @ p.w_up
+    gate = F.silu(x @ p.w_gate)
+    dp = up.shape[-1]
+    hd = dp // H
+    q = (up @ p.wq).reshape(B, L, H, hd)
+    k = (up @ p.wk).reshape(B, L, H, hd) / math.sqrt(hd)
+    v = (up @ p.wv).reshape(B, L, H, hd)
+    gifs = (up.float() @ p.w_if).reshape(B, L, H, 2)
+    i_pre, f_pre = gifs[..., 0], gifs[..., 1]
+    log_f = -F.softplus(-f_pre)                          # log sigmoid
+
+    chunk = cfg.mlstm_chunk
+    if L > 1 and chunk and L > chunk and L % chunk == 0:
+        h, new_state = _mlstm_chunkwise(
+            q, k, v, i_pre, log_f,
+            state if state is not None else mlstm_state_like(B, H, hd,
+                                                             x.device),
+            chunk)
+        if state is None:
+            new_state = None
+    elif state is None or L > 1:
+        # parallel (quadratic) form, from a zero state
+        D = _causal_log_weights(torch.cumsum(log_f, 1), i_pre)
+        m = D.amax(2, keepdim=True)                      # stabiliser
+        W = torch.exp(D - m)                             # [B, L, L, H]
+        scores = torch.einsum("blhd,bshd->blsh", q, k).float()
+        Wqk = W * scores
+        num = torch.einsum("blsh,bshd->blhd", Wqk.to(x.dtype), v)
+        den = Wqk.sum(2).abs()                           # [B, L, H]
+        h = num / den.clamp(min=1.0)[..., None].to(x.dtype)
+        new_state = None
+        if state is not None:
+            # the recurrent state after the last token
+            D_last = D[:, -1]                            # [B, L(s), H]
+            m_last = torch.where(torch.isneginf(D_last),
+                                 torch.full_like(D_last, -1e30),
+                                 D_last).amax(1)         # [B, H]
+            W_last = torch.exp(D_last - m_last[:, None, :])
+            kf, vf = k.float(), v.float()
+            C_last = torch.einsum("bshd,bshe->bhde", W_last[..., None] * vf,
+                                  kf)
+            n_last = torch.einsum("bsh,bshd->bhd", W_last, kf)
+            new_state = (C_last, n_last, m_last)
+    else:
+        C, n, m_prev = state
+        i1, f1 = i_pre[:, 0], log_f[:, 0]                # [B, H]
+        m_new = torch.maximum(f1 + m_prev, i1)
+        fw = torch.exp(f1 + m_prev - m_new)[..., None]
+        iw = torch.exp(i1 - m_new)[..., None]
+        kh, vh, qh = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        C = fw[..., None] * C + iw[..., None] * (vh[..., :, None]
+                                                 * kh[..., None, :])
+        n = fw * n + iw * kh
+        num = (C @ qh[..., None])[..., 0]                # [B, H, hd]
+        den = (n * qh).sum(-1).abs()
+        h = (num / den.clamp(min=1.0)[..., None]).to(x.dtype)
+        h = h.reshape(B, 1, H, hd)
+        new_state = (C, n, m_new)
+    out = (h.reshape(B, L, dp) * gate) @ p.w_down
+    return out, new_state
+
+
+def mlstm_state(cfg: ArchConfig, batch: int, device=None):
+    dp = int(cfg.d_model * cfg.proj_factor)
+    return mlstm_state_like(batch, cfg.n_heads, dp // cfg.n_heads, device)
+
+
+def mlstm_state_like(batch: int, H: int, hd: int, device=None):
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((batch, H, hd, hd), **f32),
+            torch.zeros((batch, H, hd), **f32),
+            torch.full((batch, H), -math.inf, **f32))
+
+
+def _mlstm_chunkwise(q, k, v, i_pre, log_f, state, chunk: int):
+    """The reference's ``_mlstm_chunkwise``: a loop over chunks of
+    ``chunk`` steps carrying the stabilised state (C, n, m). Within a chunk
+    (F the within-chunk cumulative log forget) the weights are the
+    parallel form's; the carried state enters each row with exponent
+    ``F_t + m_prev``; a row's stabiliser is the larger of the two. Returns
+    (h [B, L, H, hd], (C, n, m))."""
+    B, L, H, hd = q.shape
+    C, n, m_prev = state
+    hs = []
+    for c0 in range(0, L, chunk):
+        sl = slice(c0, c0 + chunk)
+        qc, kc, vc, ic = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl]
+        Fc = torch.cumsum(log_f[:, sl], 1)               # [B, c, H]
+        D = _causal_log_weights(Fc, ic)
+        b = Fc + m_prev[:, None, :]                      # [B, c, H]
+        m_row = torch.maximum(D.amax(2), b)
+        W = torch.exp(D - m_row[:, :, None, :])
+        qf, kf, vf = qc.float(), kc.float(), vc.float()
+        scores = torch.einsum("blhd,bshd->blsh", qf, kf)
+        Wqk = W * scores
+        winter = torch.exp(b - m_row)                    # [B, c, H]
+        Cq = torch.einsum("bhde,blhe->blhd", C, qf)
+        num = torch.einsum("blsh,bshd->blhd", Wqk.to(vc.dtype), vc) + \
+            (winter[..., None] * Cq).to(vc.dtype)
+        den = (Wqk.sum(2) + winter * torch.einsum("bhd,blhd->blh", n,
+                                                  qf)).abs()
+        hs.append(num / den.clamp(min=1.0)[..., None].to(vc.dtype))
+        # carry the state past this chunk
+        Ftot = Fc[:, -1]                                 # [B, H]
+        decay = Ftot[:, None, :] - Fc + ic               # [B, c, H]
+        m_new = torch.maximum(Ftot + m_prev, decay.amax(1))
+        wstate = torch.exp(decay - m_new[:, None, :])
+        carry = torch.exp(Ftot + m_prev - m_new)         # [B, H]
+        C = carry[..., None, None] * C + torch.einsum(
+            "bshd,bshe->bhde", wstate[..., None] * vf, kf)
+        n = carry[..., None] * n + torch.einsum("bsh,bshd->bhd", wstate, kf)
+        m_prev = m_new
+    return torch.cat(hs, 1), (C, n, m_prev)
+
+
+class SLSTM(nn.Module):
+    """Scalar-memory LSTM block: input and recurrent projections of the
+    (i, f, z, o) gates, then a GLU MLP of width ``int(d * 4 / 3)``."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        d, bf = cfg.d_model, torch.bfloat16
+        self.w_x = _param((d, 4 * d), bf, device)
+        self.w_h = _param((d, 4 * d), bf, device)
+        self.w_ffn = MLP(cfg, device, d_ff=max(1, int(d * 4 / 3)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _dense_init_(self.w_x, gen)
+        _dense_init_(self.w_h, gen, scale=0.02)
+        self.w_ffn.reset_parameters(gen)
+
+
+def slstm_apply(p: SLSTM, x, cfg: ArchConfig, *, state=None):
+    """The reference's ``slstm_apply``: exponential gating with
+    hidden-state feedback, a step at a time over the sequence (a Python
+    loop: each step needs the last step's h). The recurrent product is
+    ``h`` rounded to x's dtype times ``w_h``; the cell runs in float32.
+    x [B, L, d] -> (out, state ``(c, n, h, m)`` [B, d] float32 each)."""
+    B, L, d = x.shape
+    wx = x @ p.w_x                                       # [B, L, 4d]
+    c, n, h, m = state if state is not None else slstm_state(cfg, B,
+                                                             x.device)
+    hs = []
+    for t in range(L):
+        g = (wx[:, t] + h.to(x.dtype) @ p.w_h).float()
+        i_pre, f_pre, z, o = g.chunk(4, dim=-1)
+        log_f = -F.softplus(-f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        iw = torch.exp(i_pre - m_new)
+        fw = torch.exp(log_f + m - m_new)
+        c = fw * c + iw * torch.tanh(z)
+        n = fw * n + iw
+        h = torch.sigmoid(o) * c / n.clamp(min=1.0)
+        m = m_new
+        hs.append(h)
+    hx = torch.stack(hs, 1).to(x.dtype)                  # [B, L, d]
+    return hx + mlp_apply(p.w_ffn, hx, cfg), (c, n, h, m)
+
+
+def slstm_state(cfg: ArchConfig, batch: int, device=None):
+    f32 = dict(dtype=torch.float32, device=device)
+    z = torch.zeros((batch, cfg.d_model), **f32)
+    return (z, z.clone(), z.clone(),
+            torch.full((batch, cfg.d_model), -math.inf, **f32))

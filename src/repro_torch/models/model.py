@@ -20,16 +20,6 @@ from ..core.fabric import resolve_device
 from . import stacks
 from .config import ArchConfig
 
-# layer kinds and model features this slice does not port, with the
-# ROADMAP item that does
-_NOT_PORTED = {
-    "mlstm": "ROADMAP Queue 1 item 10 (xLSTM blocks)",
-    "slstm": "ROADMAP Queue 1 item 10 (xLSTM blocks)",
-    "enc": "ROADMAP Queue 1 item 10 (encoder-decoder models)",
-    "dec": "ROADMAP Queue 1 item 10 (encoder-decoder models)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -46,30 +36,25 @@ class Model:
             params.reset_parameters(gen)
         return params
 
-    def init_cache(self, batch: int, seq_len: int, device=None):
+    def init_cache(self, batch: int, seq_len: int, device=None,
+                   enc_len: int | None = None):
         return stacks.init_cache(self.cfg, batch, seq_len,
-                                 resolve_device(device))
+                                 resolve_device(device), enc_len)
 
-    def prefill(self, params, tokens, cache):
-        return stacks.prefill(params, self.cfg, tokens, cache)
+    def prefill(self, params, tokens, cache, frontend_embeds=None):
+        return stacks.prefill(params, self.cfg, tokens, cache,
+                              frontend_embeds)
 
-    def decode_step(self, params, token, cache, index: int):
+    def decode_step(self, params, token, cache, index: int,
+                    frontend_embeds=None):
+        """``frontend_embeds`` is taken for the reference's signature and
+        not read: a vision prefix lives in the cache, and an enc-dec
+        model's encoder memory too (as its cross K/V)."""
         return stacks.decode_step(params, self.cfg, token, cache, index)
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """The facade for ``cfg``; raises ``NotImplementedError`` for a layer
-    kind or a frontend that the port does not have yet."""
     cfg.check()
-    if cfg.frontend is not None or cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend or 'encoder-decoder'} frontend is "
-            "not ported yet (ROADMAP Queue 1 item 10)")
-    for kind in dict.fromkeys(cfg.pattern + cfg.tail):
-        if kind not in stacks.PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet ("
-                f"{_NOT_PORTED.get(kind, 'ROADMAP Queue 1 item 10')})")
     return Model(cfg)
 
 
@@ -100,8 +85,10 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> stacks.Stack:
 
     ``tree`` is ``repro.models.Model(cfg).init(...)`` with every leaf made a
     float32 numpy array (exact for bfloat16 values). The stacked
-    ``[n_groups, ...]`` leaves of ``tree["groups"]`` are unstacked into one
-    module per layer; each leaf is cast to the dtype of its parameter.
+    ``[n_groups, ...]`` leaves of ``tree["groups"]`` (and of an enc-dec
+    model's ``tree["enc_groups"]["enc0"]``, ``[n_enc_layers, ...]``) are
+    unstacked into one module per layer; each leaf is cast to the dtype of
+    its parameter.
     Raises if a leaf has no parameter, a shape differs, or a parameter is
     left without a leaf. CUDA unless ``device`` says otherwise.
     """
@@ -110,8 +97,13 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> stacks.Stack:
     params = stacks.Stack(cfg, dev)
     done: set = set()
     with torch.no_grad():
-        top = {k: v for k, v in tree.items() if k not in ("groups", "tail")}
+        stacked = ("groups", "tail", "enc_groups")
+        top = {k: v for k, v in tree.items() if k not in stacked}
         _copy_tree(params, top, "", done)
+        for g in range(cfg.n_enc_layers if cfg.enc_dec else 0):
+            _copy_tree(params.enc_layers[g],
+                       _index_tree(tree["enc_groups"]["enc0"], g),
+                       f"enc_groups.enc0[{g}]", done)
         n_pat = len(cfg.pattern)
         for i, kind in enumerate(cfg.pattern):
             sub = tree["groups"][f"{kind}{i}"]
@@ -137,10 +129,6 @@ def _index_tree(tree: dict, g: int) -> dict:
 # ---------------------------------------------------------------------------
 # analytic parameter counts
 # ---------------------------------------------------------------------------
-
-def frontend_dim(cfg: ArchConfig) -> int:
-    return 512 if cfg.frontend == "audio" else 1024
-
 
 def _layer_params(kind: str, cfg: ArchConfig, active: bool) -> int:
     d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -179,7 +167,7 @@ def count_params(cfg: ArchConfig, active: bool = False) -> int:
     if cfg.enc_dec:
         n += cfg.n_enc_layers * _layer_params("enc", cfg, active)
     if cfg.frontend is not None:
-        n += frontend_dim(cfg) * cfg.d_model
+        n += stacks.frontend_dim(cfg) * cfg.d_model
     return int(n)
 
 

@@ -51,48 +51,10 @@ from repro_torch.models import count_params as Q_count  # noqa: E402
 from repro_torch.models import layers as Q_ly  # noqa: E402
 from repro_torch.models import model_flops as Q_flops  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
+from torch_lm_parity import (JNP, LAYER_TOL, MODEL_TOL, TORCH, both,  # noqa: E402
+                             carried, float_cache, group_layer, relerr,
+                             to_numpy)
 from torch_parity import release_compiled_programs  # noqa: E402, F401
-
-LAYER_TOL = {"f32": 2e-5, "bf16": 2e-2}
-MODEL_TOL = {"f32": 1e-4, "bf16": 6e-2}
-JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
-TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-
-def relerr(a, b):
-    a = a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
-    b = b.float().numpy() if isinstance(b, torch.Tensor) else np.asarray(b, np.float32)
-    return np.max(np.abs(a - b)) / (np.abs(b).max() + 1e-6)
-
-
-def both(x, dt):
-    """The same values as a jnp array and a torch tensor of dtype ``dt``."""
-    j = jnp.asarray(x, JNP[dt])
-    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(TORCH[dt])
-
-
-def to_numpy(tree):
-    return jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)), tree)
-
-
-def carried(arch, dt="bf16", **over):
-    """(cfg, reference params, port params) for ``arch`` at ``reduced()``;
-    with ``dt="f32"`` both sets of weights are float32."""
-    cfg = R_get_config(arch).reduced(**over)
-    rp = R_build(cfg).init(jax.random.PRNGKey(0))
-    qp = params_from_numpy(Q_get_config(arch).reduced(**over), to_numpy(rp),
-                           device="cpu")
-    if dt == "f32":
-        rp = jax.tree.map(lambda x: x.astype(jnp.float32), rp)
-        qp = qp.float()
-    return cfg, rp, qp
-
-
-def group_layer(cfg, rp, qp, i):
-    """The reference's and the port's parameters of layer ``i`` of the
-    first pattern group."""
-    kp = f"{cfg.pattern[i]}{i}"
-    return jax.tree.map(lambda a: a[0], rp["groups"][kp]), qp.layers[i]
 
 
 # ---------------------------------------------------------------------------
@@ -337,12 +299,6 @@ def test_decode_dispatch_leaves_groups_without_a_token_zero(arch, B,
 # whole models
 # ---------------------------------------------------------------------------
 
-def _float_cache(cache):
-    return [Q_ly.AttnCache(c.k.float(), c.v.float(), c.pos)
-            if isinstance(c, Q_ly.AttnCache) else (c[0], c[1].float())
-            for c in cache]
-
-
 MODEL_CASES = [("recurrentgemma-9b", {}), ("gemma2-9b", {}), ("olmo-1b", {}),
                ("olmo-1b", dict(n_kv_heads=4)), ("qwen3-moe-30b-a3b", {}),
                ("llama4-scout-17b-a16e", {})]
@@ -418,7 +374,7 @@ def test_prefill_and_decode_match_reference(arch, over, dt, monkeypatch):
     if dt == "f32":
         rc = jax.tree.map(lambda a: a.astype(jnp.float32)
                           if a.dtype == jnp.bfloat16 else a, rc)
-        qc = _float_cache(qc)
+        qc = float_cache(qc)
     rl, rc = jax.jit(rm.prefill)(rp, jnp.asarray(toks[:, :L]), rc)
     ql, qc = qm.prefill(qp, torch.tensor(toks[:, :L]), qc)
     routes.mark()
@@ -485,13 +441,6 @@ def test_serve_moe_matches_reference_counts(monkeypatch):
     assert got["decode_tokens"] == want["decode_tokens"] > 0
 
 
-def _leaves(cache):
-    out = []
-    for c in cache:
-        out += [c.k, c.v, c.pos] if isinstance(c, Q_ly.AttnCache) else list(c)
-    return out
-
-
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "gemma2-9b"])
 def test_refill_slot_is_a_fresh_prefill(arch):
     """After a refill, every per-slot tensor of the refilled slot (k, v,
@@ -511,7 +460,7 @@ def test_refill_slot_is_a_fresh_prefill(arch):
     for t in range(L, L + 3):
         logits, cache = model.decode_step(params, tok, cache, t)
         tok = logits[:, -1].argmax(-1)[:, None]
-    before = [x.clone() for x in _leaves(cache)]
+    before = [x.clone() for x in Q_serve.cache_leaves(cache)]
     prompt = rng.integers(2, 512, L).astype(np.int32)
     first = Q_serve.refill_slot(model, params, cache, s, prompt, B, S)
     fresh_logits, fresh = model.prefill(
@@ -519,7 +468,8 @@ def test_refill_slot_is_a_fresh_prefill(arch):
         model.init_cache(B, S, device="cpu"))
     torch.testing.assert_close(first, fresh_logits[s], rtol=0, atol=0)
     others = [j for j in range(B) if j != s]
-    for old, now, new in zip(before, _leaves(cache), _leaves(fresh)):
+    for old, now, new in zip(before, Q_serve.cache_leaves(cache),
+                             Q_serve.cache_leaves(fresh)):
         assert torch.equal(now[s], new[s])
         assert torch.equal(now[others], old[others])
 
@@ -582,8 +532,15 @@ def test_entry_points_without_cuda_raise(monkeypatch):
 @pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2",
                                   "llava-next-34b"])
 def test_unported_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Q_build(Q_get_config(arch))
+    """The xLSTM, encoder-decoder and vision models were the last unported
+    ones: they build now, and only a layer kind that neither package has
+    raises, when its parameters are made (``ValueError``, as the
+    reference's ``_layer_init`` does)."""
+    cfg = Q_get_config(arch)
+    assert Q_build(cfg).cfg is cfg
+    bogus = dataclasses.replace(cfg.reduced(), pattern=("bogus",), n_layers=2)
+    with pytest.raises(ValueError, match="bogus"):
+        Q_build(bogus).init(0, device="cpu")
 
 
 @pytest.mark.parametrize("arch", list_archs())

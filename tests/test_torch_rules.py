@@ -8,6 +8,7 @@
 * entry points run on CUDA unless told otherwise: without a card and
   without ``device="cpu"`` they raise, never quietly run on the CPU (the
   language-model entry points are checked in ``test_torch_lm.py``);
+* ``build_model`` builds every config, at the reference's parameter count;
 * a kernel wrapper given tensors that are not on the CPU launches its
   kernel or raises, never falls back to the plain version, and validates
   what it passes to the kernel;
@@ -25,7 +26,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.core as Q  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.models import build_model, count_params, stacks  # noqa: E402
 from repro_torch.kernels import admission as Q_adm  # noqa: E402
 from repro_torch.kernels import decode_attention as Q_da  # noqa: E402
 from repro_torch.kernels import flash_attention as Q_fa  # noqa: E402
@@ -104,7 +107,8 @@ def test_entry_points_without_cuda_raise(monkeypatch):
                  lambda: Q.reconfigure(sched, wl, fab, rcfg),
                  lambda: Q.vlb(sched, compile_impl="jnp"),
                  lambda: Q.repair(sched, "hoho", np.zeros((6, 6), bool),
-                                  impl="jnp")):
+                                  impl="jnp"),
+                 lambda: Q.simulate_eqo(50, total_ns=1_000)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert Q.OpenOpticsNet(cfg, device="cpu").device.type == "cpu"
@@ -117,6 +121,28 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     assert net.ingest(wl) and net.advance(4)
     assert net._service.device.type == "cpu"
     assert net.service_result().t_deliver.shape == (wl.num_packets,)
+
+
+def test_simulate_eqo_runs_where_it_is_told():
+    """``simulate_eqo`` computes on the device it is given and returns
+    Python floats in the reference's dict."""
+    out = Q.simulate_eqo(50, total_ns=2_000, device="cpu")
+    assert set(out) == {"update_interval_ns", "err_max_bytes",
+                        "err_mean_bytes"}
+    assert all(isinstance(out[k], float) for k in out if k.startswith("err"))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_build_model_accepts_every_config(arch):
+    """Every config of the port builds, and its full-size parameters (made
+    on the ``meta`` device, without storage) number what the reference's
+    analytic count says, norm scales aside."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = stacks.Stack(model.cfg, device="meta")
+    n = {name: p.numel() for name, p in params.named_parameters()}
+    norms = sum(v for k, v in n.items() if k.endswith(("scale", "_norm")))
+    assert sum(n.values()) - norms == count_params(cfg)
 
 
 def test_misshaped_masks_raise():
