@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Fault probe of ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
-    python3 chip_fault_probe.py
+    python3 chip_fault_probe.py ["fault name" ...]
+
+With names, only those faults are planted, and the unchanged tree runs
+only the phases they name.
 
 Shows whether the checks of phase 2 (admission and the time-flow lookup
 against their plain versions, bit for bit), phase 7 (flash attention and flash-decode against
@@ -25,7 +28,9 @@ mLSTM's three forms against each other and the card against the CPU), C
 (Seamless through the kernels against the plain versions; its
 cross-attention against a plain computation) and D (LLaVA's serve, its
 first decode step against the prefill of the prompt and token) catch a
-wrong model layer or serve loop. For the unchanged tree and for each
+wrong model layer or serve loop; and whether phase E (each kernel's
+gradient on the card against autograd through its plain version) catches
+a wrong gradient. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -54,10 +59,12 @@ FAILURES = Path("src/repro_torch/core/failures.py")
 RECONF = Path("src/repro_torch/core/reconfigure.py")
 MATCHING = Path("src/repro_torch/core/matching.py")
 LAYERS = Path("src/repro_torch/models/layers.py")
+ATTN_GRAD = Path("src/repro_torch/models/chunked_attention.py")
 SERVE = Path("src/repro_torch/launch/serve.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
           "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c",
-          "phase 22a", "phase 22b", "phase B", "phase C", "phase D")
+          "phase 22a", "phase 22b", "phase B", "phase C", "phase D",
+          "phase E")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -219,6 +226,23 @@ FAULTS = {
     "vision prefix left out of the decode index": (
         SERVE, "    pos = prefix_len(cfg) + prompt_len",
         "    pos = prompt_len", ("phase D",)),
+    # attention's backward without the softcap's factor 1 - (s / cap)^2
+    "softcap factor dropped from the attention backward": (
+        ATTN_GRAD, "ds = ds * (1.0 - torch.square(s / softcap))", "ds = ds",
+        ("phase E",)),
+    # dk of a kv head taken from the first query head of its GQA group
+    # instead of summed over the group's heads
+    "dk from one query head of a GQA group": (
+        ATTN_GRAD, "            dk[:, :, ks] += (fold(ds)\n"
+        "                             @ qb.reshape(B, n_kv_heads, G * bq, hd)).float()",
+        "            dk[:, :, ks] += (ds[:, :, 0].transpose(-1, -2)\n"
+        "                             @ qb[:, :, 0]).float()",
+        ("phase E",)),
+    # the scan's gradient runs the reversed recurrence on a_t, not shifted
+    # to a_{t+1}
+    "reversed scan with unshifted coefficients": (
+        RG_WRAPPER, "    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)",
+        "    a_next = a", ("phase E",)),
 }
 CHECKS = """
 import sys, torch
@@ -287,7 +311,8 @@ for phase, check in (("phase 18", lambda: cs.check_service(
                      ("phase 22b", lambda: cs.check_sharded(dev)),
                      ("phase B", lambda: cs.check_xlstm_vs_cpu(dev)),
                      ("phase C", lambda: cs.check_seamless_vs_plain(dev)),
-                     ("phase D", lambda: cs.check_llava(dev))):
+                     ("phase D", lambda: cs.check_llava(dev)),
+                     ("phase E", lambda: cs.check_train_kernels(dev))):
     if phase in phases:
         try:
             print(phase, check())
@@ -299,7 +324,8 @@ print("FAILED:", ", ".join(failed) or "none", flush=True)
 LAST_SPLIT = "one valid slot, in the last split"
 
 
-def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
+def probe(name: str, fault, tmp: Path,
+          sound_phases=PHASES) -> tuple[str, str]:
     """(the checks' ``FAILED:`` line, their whole output) for one tree."""
     copy = tmp / re.sub(r"\W+", "_", name)
     shutil.copytree(ROOT / "src", copy / "src",
@@ -314,7 +340,7 @@ def probe(name: str, fault, tmp: Path) -> tuple[str, str]:
             raise SystemExit(f"{name}: the text to replace is not in "
                              f"{fault[0]} exactly once")
         path.write_text(text.replace(fault[1], fault[2]))
-    phases = PHASES if fault is None else fault[3]
+    phases = sound_phases if fault is None else fault[3]
     out = subprocess.run([sys.executable, "-c", CHECKS, str(copy),
                           ",".join(phases)],
                          capture_output=True, text=True, timeout=1500)
@@ -351,9 +377,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     ok = True
+    faults, sound = FAULTS, PHASES
+    if sys.argv[1:]:
+        unknown = [n for n in sys.argv[1:] if n not in FAULTS]
+        if unknown:
+            raise SystemExit(f"chip_fault_probe: no fault named {unknown}")
+        faults = {"sound": None, **{n: FAULTS[n] for n in sys.argv[1:]}}
+        sound = tuple(p for p in PHASES
+                      if any(p in FAULTS[n][3] for n in sys.argv[1:]))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, fault in FAULTS.items():
-            verdict, text = probe(name, fault, Path(tmp))
+        for name, fault in faults.items():
+            verdict, text = probe(name, fault, Path(tmp), sound)
             if fault is None:
                 caught = verdict == "FAILED: none"
             else:
@@ -361,7 +395,7 @@ def main() -> int:
                 caught = any(p in failed for p in fault[3])
                 if fault[0] == DECODE:
                     caught &= last_split_caught(text)
-                if fault[0] == RG_WRAPPER:
+                if fault[0] == RG_WRAPPER and "phase 7" in fault[3]:
                     caught &= graph_replay_caught(text)
             print(f"{name}: {verdict} -> "
                   f"{'as required' if caught else 'NOT as required'}",

@@ -158,7 +158,8 @@ def main() -> int:
                 nxt.zero_()
                 err = lib.flash_launch(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    nxt.data_ptr(), B * Hq, L, S, Hq, Hkv, hd, int(causal),
+                    None, nxt.data_ptr(), B * Hq, L, S, Hq, Hkv, hd,
+                    int(causal),
                     window, 0.0, 1.0 / math.sqrt(hd), 0,
                     torch.cuda.current_stream().cuda_stream)
                 if err:

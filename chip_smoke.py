@@ -235,6 +235,26 @@ D. Serve LLaVA-NeXT-34B at full width, 4 of its 60 layers (1,024 vision
    launches a prefill, 4 flash-decode a step; the serve's first decode
    step against the prefill of the prompt and its token; 4 layers through
    the kernels against the plain versions (B = 2).
+E. Training. (a) Each kernel's gradient through its autograd Function
+   against autograd through its plain version: flash attention (forward,
+   the kernel with its log-sum-exp; the torch-op backward) at OLMo-1B's
+   training shape, a windowed soft-capped GQA shape and Seamless's
+   cross-attention, its LSE against ``torch.logsumexp``; the RG-LRU scan
+   at RecurrentGemma's [4, 3,072, 4,096]; the grouped matmul at
+   Qwen3-30B-A3B's prefill shapes; each backward timed beside the plain
+   autograd's (and SDPA's forward + backward, the two ``torch.bmm``).
+   (b) ``reduced(head_dim=64)`` RecurrentGemma and Qwen3-MoE: one
+   micro-batch's gradients through the kernels against the plain versions
+   (the plain run held to the kernel run's experts), the forward's and the
+   backward's launches exact, 8 steps of ``make_train_step`` after which
+   a held-out batch's loss is lower. (c) ``launch.train.train`` on
+   OLMo-1B at full width and depth, 10 steps of 8 x 4,096 tokens in two
+   micro-batches: losses, step time, tokens/s, share of 6ND at 989
+   TFLOP/s, peak memory, exactly 2 flash launches a layer a micro-batch;
+   one more step profiled. (d) The small preset crashed at step 5 and
+   resumed from its checkpoint, bit-identical to the uninterrupted run.
+   ``python3 chip_smoke.py --phase E`` runs phases 1 and E alone and
+   prints no result line.
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -3312,6 +3332,561 @@ def check_llava(dev) -> dict:
     return out
 
 
+# -- phase E: training -----------------------------------------------------
+# E(a): each kernel's gradient on the card against the plain version's
+# autograd. Flash attention at OLMo-1B's training shape (B = 4 micro-batch
+# rows, 16 MHA heads of 128, 4,096 tokens, causal), at a windowed,
+# soft-capped GQA shape (Gemma-2-9B's heads: 16 q / 8 kv of 256, softcap
+# 50, a 1,024 window; q and k drawn 4x wider, so that scores reach the cap
+# and the softcap's factor in the backward matters: without it dq and dk
+# are 35-56% off, 0.4% at unit width) and at Seamless's cross-attention
+# (hd 64, 3,072 queries over 1,024 frames); the backward's blocks are the
+# configs' attn_bq = attn_bk = 2,048.
+TRAIN_FLASH = {
+    "olmo": dict(B=4, Hq=16, Hkv=16, L=4096, S=4096, hd=128,
+                 kw=dict(causal=True, window=0, softcap=0.0)),
+    "windowed_softcap_gqa": dict(B=2, Hq=16, Hkv=8, L=4096, S=4096, hd=256,
+                                 kw=dict(causal=True, window=1024,
+                                         softcap=50.0), amp=4.0),
+    "seamless_cross": dict(B=4, Hq=16, Hkv=16, L=3072, S=1024, hd=64,
+                           kw=dict(causal=False, window=0, softcap=0.0)),
+}
+TRAIN_BLOCK = 2048
+# bf16 tolerance of tests/test_kernels.py for the gradients (relative error
+# of each of dq, dk, dv); the LSE within the f32 model tolerance
+TRAIN_GRAD_TOL = 2e-2
+LSE_TOL = 1e-4
+# E(b): kernels vs plain versions on a reduced model's gradients, in bf16:
+# the model tolerance of the CPU tests (tests/torch_lm_parity.py)
+TRAIN_MODEL_TOL = 6e-2
+TRAIN_SMALL = dict(seq=256, global_batch=8, steps=8)
+# E(c): OLMo-1B at full width and depth, cut from train_4k's 256 x 4,096
+# tokens to 8 x 4,096 (two micro-batches of 4) and 10 steps
+OLMO_TRAIN = dict(arch="olmo-1b", preset="full", steps=10, global_batch=8,
+                  seq=4096, micro_batches=2)
+# E(d): crash at step 5 of 6 and resume from the step-4 checkpoint
+RESUME_RUN = dict(arch="olmo-1b", preset="small", steps=6, global_batch=4,
+                  seq=256, micro_batches=2, ckpt_every=2, seed=3)
+
+
+def event_ms(fn, repeats: int = 3) -> float:
+    """Median device time of ``fn()`` between CUDA events, after one
+    warm-up call (for work a CUDA graph cannot hold: autograd's
+    backward)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def visible_pairs(L, S, causal, window) -> int:
+    """(query, key) pairs the mask lets through, counted exactly."""
+    i = np.arange(L)
+    hi = np.minimum(i, S - 1) if causal else np.full(L, S - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(L, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def grad_errs(got, want) -> dict:
+    return {n: relerr(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def check_flash_grads(dev) -> dict:
+    """FlashAttentionFn (the kernel with its LSE, the torch-op backward)
+    against autograd through the plain version, and the kernel's LSE
+    against the plain one; forward + backward timed beside the plain
+    version's and SDPA's (where SDPA computes the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.chunked_attention import FlashAttentionFn
+    out = {}
+    for tag, sh in TRAIN_FLASH.items():
+        B, Hq, Hkv, L, S, hd = (sh[k] for k in ("B", "Hq", "Hkv", "L", "S",
+                                                  "hd"))
+        kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, **sh["kw"])
+        scale = 1.0 / math.sqrt(hd)
+        q, k, v = flash_inputs(dev, B, Hq, Hkv, L, S, hd, seed=70)
+        q, k = q * sh.get("amp", 1.0), k * sh.get("amp", 1.0)
+        g = torch.Generator(device=dev).manual_seed(71)
+        dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        args = (Hq, Hkv, kw["causal"], kw["window"], kw["softcap"], scale, 0,
+                TRAIN_BLOCK, TRAIN_BLOCK)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def kernel_fwd():
+            return FlashAttentionFn.apply(*leaves, *args)
+
+        def plain_fwd():
+            return fa.flash_attention_plain(*leaves, scale=scale, **kw)
+
+        res = {}
+        for name, fwd in (("kernel", kernel_fwd), ("plain", plain_fwd)):
+            o = fwd()
+            res[name] = torch.autograd.grad(o, leaves, dout)
+            del o
+        errs = grad_errs(res["kernel"], res["plain"])
+        _, lse_k = fa.flash_attention(q, k, v, scale=scale, lse=True, **kw)
+        _, lse_p = fa.flash_attention_plain(q, k, v, scale=scale, lse=True,
+                                            **kw)
+        lse_err = relerr(lse_k, lse_p)
+        finite = all(bool(torch.isfinite(x).all()) for x in res["kernel"])
+        del res
+        # times: forward + backward, and the backward alone (the graph of
+        # one forward kept for repeated backward passes)
+        t = {}
+        for name, fwd in (("kernel", kernel_fwd), ("plain", plain_fwd)):
+            t[f"{name}_fwd_bwd_ms"] = event_ms(
+                lambda: torch.autograd.grad(fwd(), leaves, dout))
+            o = fwd()
+            t[f"{name}_bwd_ms"] = event_ms(
+                lambda: torch.autograd.grad(o, leaves, dout,
+                                            retain_graph=True))
+            del o
+        sdpa = None
+        if kw["softcap"] == 0.0 and kw["window"] == 0:
+            sq, sk, sv = (x.reshape(B, -1, x.shape[1], hd) for x in leaves)
+            dsd = dout.reshape(B, Hq, L, hd)
+            sdpa = event_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(sq, sk, sv,
+                                               is_causal=kw["causal"]),
+                (sq, sk, sv), dsd))
+        pairs = B * Hq * visible_pairs(L, S, kw["causal"], kw["window"])
+        # the backward's least work: five products of 2 * pairs * hd flops
+        # (S again, dP, dV, dQ, dK); q, k, v, out, dout, lse read once, dq,
+        # dk, dv written once
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * L + \
+            2 * (q.numel() + 2 * k.numel())
+        bwd_bound = bound(nbytes, 5 * 2 * pairs * hd, TC_BF16_FLOPS_PER_S)
+        log(f"phase E(a) flash {tag} (B {B}, Hq {Hq}, Hkv {Hkv}, L {L}, S {S}, "
+            f"hd {hd}, {sh['kw']}): relerr "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (limit {TRAIN_GRAD_TOL:.0e}), LSE {lse_err:.3e} (limit "
+            f"{LSE_TOL:.0e}); fwd+bwd ms: kernel {t['kernel_fwd_bwd_ms']:.3f}, "
+            f"plain {t['plain_fwd_bwd_ms']:.3f}, SDPA "
+            f"{'n/a' if sdpa is None else f'{sdpa:.3f}'}; bwd ms: "
+            f"{t['kernel_bwd_ms']:.3f} (plain {t['plain_bwd_ms']:.3f}, bound "
+            f"{bwd_bound['bound_ms']:.3f} by {bwd_bound['bound_by']})")
+        if max(errs.values()) > TRAIN_GRAD_TOL or lse_err > LSE_TOL or \
+                not finite:
+            raise SystemExit(f"phase E(a) flash {tag}: gradients or LSE off")
+        out[tag] = dict(max_relerr=max(errs.values()), lse_relerr=lse_err,
+                        sdpa_fwd_bwd_ms=sdpa, bwd_bound_ms=bwd_bound[
+                            "bound_ms"], bwd_bound_by=bwd_bound["bound_by"],
+                        **errs, **t)
+        del q, k, v, dout, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_rg_lru_grads(dev) -> dict:
+    """RGLRUFn (the kernel forward, its reversed kernel call backward)
+    against autograd through the plain loop, at RecurrentGemma's [4,
+    3,072, 4,096], with slow channels."""
+    from repro_torch.kernels import rg_lru as rl
+    sh = RGLRU_FULL
+    a, b = rglru_inputs(dev, sh["B"], sh["L"], sh["W"], seed=72, slow=True)
+    dh = torch.randn(a.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(73))
+    leaves = [x.detach().requires_grad_(True) for x in (a, b)]
+    got = torch.autograd.grad(rl.RGLRUFn.apply(*leaves), leaves, dh)
+    want = torch.autograd.grad(rl.rg_lru_plain(*leaves), leaves, dh)
+    errs = {"da": relerr(got[0], want[0]), "db": relerr(got[1], want[1])}
+    h = rl.RGLRUFn.apply(*leaves)
+    bwd_ms = event_ms(lambda: torch.autograd.grad(h, leaves, dh,
+                                                  retain_graph=True))
+    hp = rl.rg_lru_plain(*leaves)
+    plain_bwd_ms = event_ms(lambda: torch.autograd.grad(hp, leaves, dh,
+                                                        retain_graph=True),
+                            repeats=1)
+    # a, h, dh read, da, db written, float32
+    bwd_bound = bound(5 * 4 * a.numel(), 4 * a.numel())
+    log(f"phase E(a) rg_lru grads [4, 3072, 4096]: relerr da {errs['da']:.3e}, "
+        f"db {errs['db']:.3e} (limit {RGLRU_TOL:.0e}); bwd {bwd_ms:.3f} ms "
+        f"(plain autograd {plain_bwd_ms:.3f}, bound {bwd_bound['bound_ms']:.3f} "
+        f"by {bwd_bound['bound_by']})")
+    if max(errs.values()) > RGLRU_TOL:
+        raise SystemExit("phase E(a) rg_lru: gradients off")
+    return dict(max_relerr=max(errs.values()), bwd_ms=bwd_ms,
+                plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound["bound_ms"],
+                bwd_bound_by=bwd_bound["bound_by"], **errs)
+
+
+def check_gmm_grads(dev) -> dict:
+    """GroupedMatmulFn (two more grouped matmuls backward) against autograd
+    through the plain version at Qwen3-30B-A3B's prefill shapes (128
+    experts, M = 960; the gate / up product and the down product)."""
+    from repro_torch.kernels import grouped_matmul as gm
+    out = {}
+    for key, G, M, K, N in GMM_PATH[:2]:
+        x, w = gmm_inputs(dev, G, M, K, N, seed=74)
+        dy = torch.randn(G, M, N, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(75)
+                         ).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+        got = torch.autograd.grad(gm.GroupedMatmulFn.apply(*leaves), leaves,
+                                  dy)
+        want = torch.autograd.grad(gm.grouped_matmul_plain(*leaves), leaves,
+                                   dy)
+        errs = {"dx": row_relerr(got[0], want[0]),
+                "dw": row_relerr(got[1], want[1])}
+        y = gm.GroupedMatmulFn.apply(*leaves)
+        bwd_ms = event_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                      retain_graph=True))
+        yp = gm.grouped_matmul_plain(*leaves)
+        plain_bwd_ms = event_ms(lambda: torch.autograd.grad(
+            yp, leaves, dy, retain_graph=True))
+        lib = event_ms(lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                torch.bmm(x.transpose(1, 2), dy)))
+        nbytes = 2 * (x.numel() + w.numel() + dy.numel()) * 2
+        bwd_bound = bound(nbytes, 2 * 2 * G * M * K * N, TC_BF16_FLOPS_PER_S)
+        log(f"phase E(a) grouped matmul grads {key} [{G}, {M}, {K}] x [{G}, "
+            f"{K}, {N}]: row relerr dx {errs['dx']:.3e}, dw {errs['dw']:.3e} "
+            f"(limit {GMM_TOL:.0e}); bwd {bwd_ms:.3f} ms (plain autograd "
+            f"{plain_bwd_ms:.3f}, two torch.bmm {lib:.3f}, bound "
+            f"{bwd_bound['bound_ms']:.3f} by {bwd_bound['bound_by']})")
+        if max(errs.values()) > GMM_TOL:
+            raise SystemExit(f"phase E(a) grouped matmul {key}: gradients off")
+        out[key] = dict(max_relerr=max(errs.values()), bwd_ms=bwd_ms,
+                        plain_bwd_ms=plain_bwd_ms, bmm_bwd_ms=lib,
+                        bwd_bound_ms=bwd_bound["bound_ms"],
+                        bwd_bound_by=bwd_bound["bound_by"], **errs)
+    return out
+
+
+def check_train_kernels(dev) -> dict:
+    """Phase E(a)."""
+    return dict(flash=check_flash_grads(dev), rg_lru=check_rg_lru_grads(dev),
+                grouped_matmul=check_gmm_grads(dev))
+
+
+def lm_counts() -> dict:
+    fa, da, rl, gm = lm_kernel_modules()
+    return dict(flash=fa.launches, decode=da.launches, rg_lru=rl.launches,
+                gmm=gm.launches)
+
+
+def zero_lm_counts() -> None:
+    for m in lm_kernel_modules():
+        m.launches = 0
+
+
+def check_train_small(dev, arch) -> dict:
+    """Phase E(b): ``reduced(head_dim=64)`` of ``arch`` (two micro-batches
+    a step). One micro-batch's loss and gradients through the kernels
+    against the plain versions (the plain run held to the kernel run's
+    experts, as phase 15 holds it), with the launches of the forward and of
+    the backward (which recomputes each checkpointed layer); then
+    ``TRAIN_SMALL['steps']`` steps of ``make_train_step`` on fresh batches,
+    after which the loss of a batch they did not see (step 1,000's) must
+    be lower than before them."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step, opt_init
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as ly
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(arch).reduced(head_dim=64, train_microbatches=2)
+    model = build_model(cfg)
+    params = model.trainable(model.init(0, dev))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SMALL["seq"],
+                                  global_batch=TRAIN_SMALL["global_batch"],
+                                  seed=0))
+    b0 = data.device_batch(0, dev)
+    half = {k: v[: TRAIN_SMALL["global_batch"] // 2] for k, v in b0.items()}
+    named = dict(params.named_parameters())
+    route = ly.moe_route
+    picks = []
+
+    def run(forced=None):
+        def recorded(p, x, c):
+            gates, idx = route(p, x, c)
+            if forced is not None:
+                idx = forced[len(picks)]
+                gates = torch.softmax((x.float() @ p.router).gather(-1, idx),
+                                      dim=-1)
+            picks.append(idx)
+            return gates, idx
+
+        ly.moe_route = recorded
+        try:
+            zero_lm_counts()
+            loss = model.loss(params, half["tokens"], half["labels"])
+            torch.cuda.synchronize()
+            fwd = lm_counts()
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+            torch.cuda.synchronize()
+            bwd = {k: v - fwd[k] for k, v in lm_counts().items()}
+        finally:
+            ly.moe_route = route
+        return loss.detach(), grads, fwd, bwd
+
+    loss_k, grads_k, fwd, bwd = run()
+    kernel_picks = list(picks)
+    picks.clear()
+    with plain_versions():
+        loss_p, grads_p, _, _ = run(kernel_picks)
+    errs = {n: relerr(a, b) for n, a, b in zip(named, grads_k, grads_p)
+            if a is not None}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k
+                 if g is not None)
+    del grads_k, grads_p
+    step = make_train_step(cfg, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_SMALL["steps"]),
+        device=dev)
+    opt = opt_init(params)
+    held = data.device_batch(1000, dev)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(model.loss(params, held["tokens"], held["labels"]))
+
+    before = held_loss()
+    losses = []
+    zero_lm_counts()
+    for s in range(TRAIN_SMALL["steps"]):
+        params, opt, m = step(params, opt, data.device_batch(s, dev))
+        losses.append(float(m["loss"]))
+    step_counts = lm_counts()
+    after = held_loss()
+    log(f"phase E(b) {arch} reduced(head_dim=64): loss kernels "
+        f"{float(loss_k):.5f} plain {float(loss_p):.5f}; gradients relerr "
+        f"worst {errs[worst]:.3e} ({worst}; limit {TRAIN_MODEL_TOL:.0e}), "
+        f"finite {finite}; launches of one micro-batch: forward {fwd}, "
+        f"backward {bwd}; {TRAIN_SMALL['steps']} steps' losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f", launches {step_counts}; held-out loss {before:.4f} before, "
+        f"{after:.4f} after")
+    if errs[worst] > TRAIN_MODEL_TOL or not finite or not after < before or \
+            abs(float(loss_k) - float(loss_p)) > TRAIN_MODEL_TOL * float(loss_p):
+        raise SystemExit(f"phase E(b) {arch}: gradients or losses off")
+    return dict(loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                worst_grad_relerr=errs[worst], worst_leaf=worst,
+                fwd_launches=fwd, bwd_launches=bwd, losses=losses,
+                held_loss_before=before, held_loss_after=after,
+                step_launches=step_counts, layers=cfg.n_layers)
+
+
+def expect_launches(tag, got: dict, want: dict) -> None:
+    for k, v in want.items():
+        if got[k] != v:
+            raise SystemExit(f"{tag}: {got[k]} {k} launches, the design "
+                             f"says {v}")
+
+
+def check_olmo_train(dev, smi) -> dict:
+    """Phase E(c): ``repro_torch.launch.train.train`` on OLMo-1B at full
+    width and depth (``OLMO_TRAIN``), launch counts zeroed before and read
+    after, peak device memory; then one more step profiled: device time
+    by kernel group, and the backward's attention (torch ops) on CUDA
+    events."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as tr
+    from repro_torch.models import count_params
+    cfg = get_config(OLMO_TRAIN["arch"])
+    n = count_params(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    res = tr.train(**OLMO_TRAIN, device=dev, log_every=1)
+    wall = time.perf_counter() - t0
+    counts = lm_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in res["history"]]
+    dts = [h["dt_s"] for h in res["history"]]
+    step_s = statistics.median(dts[1:])
+    tokens = OLMO_TRAIN["global_batch"] * OLMO_TRAIN["seq"]
+    flops = 6.0 * n * tokens
+    per_step = OLMO_TRAIN["micro_batches"] * cfg.n_layers * 2
+    out = dict(params=n, losses=losses, step_s=dts, median_step_s=step_s,
+               tokens_per_s=tokens / step_s, model_flops_per_step=flops,
+               mfu_6nd=flops / step_s / TC_BF16_FLOPS_PER_S,
+               bound_step_s=flops / TC_BF16_FLOPS_PER_S, peak_gib=peak,
+               launches=counts, wall_s=wall)
+    log(f"phase E(c) olmo-1b train, full width and depth ({n:,} parameters), "
+        f"{OLMO_TRAIN['steps']} steps of {OLMO_TRAIN['global_batch']} x "
+        f"{OLMO_TRAIN['seq']} tokens in {OLMO_TRAIN['micro_batches']} "
+        f"micro-batches ({smi}): losses " + " ".join(f"{x:.4f}" for x in losses)
+        + "; step s " + " ".join(f"{x:.3f}" for x in dts)
+        + f"; median step {step_s:.3f} s, {tokens / step_s:,.0f} tokens/s, "
+        f"6ND {flops:.3e} flops a step = {out['mfu_6nd']:.1%} of 989 TFLOP/s "
+        f"(bound {flops / TC_BF16_FLOPS_PER_S:.3f} s); peak "
+        f"{peak:.2f} GiB; launches {counts}; wall {wall:.1f} s")
+    expect_launches("phase E(c)", counts,
+                    dict(flash=OLMO_TRAIN["steps"] * per_step, rg_lru=0,
+                         gmm=0, decode=0))
+    if not (losses[-1] < losses[0]) or not all(map(math.isfinite, losses)):
+        raise SystemExit("phase E(c): the loss did not fall")
+    out["profile"] = profile_train_step(dev, cfg, res["params"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(dev, cfg, params) -> dict:
+    """One more OLMo-1B step (two micro-batches and the update) under the
+    profiler: device time by kernel group, with the backward's attention
+    (torch ops) and the optimizer measured on CUDA events around them; the
+    wall of the same step without the profiler first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as st
+    from repro_torch.models import build_model
+    from repro_torch.models import chunked_attention as ca
+    from repro_torch.optim import AdamWConfig
+    model = build_model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=OLMO_TRAIN["seq"],
+                                  global_batch=OLMO_TRAIN["global_batch"],
+                                  seed=0))
+    batch = data.device_batch(OLMO_TRAIN["steps"], dev)
+    opt = st.opt_init(params)
+    mb = OLMO_TRAIN["global_batch"] // OLMO_TRAIN["micro_batches"]
+    spans = {"attention backward (torch ops)": [], "optimizer": [],
+             "forward + loss": [], "backward": []}
+
+    def timed(name, fn, *a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = fn(*a, **k)
+        e1.record()
+        spans[name].append((e0, e1))
+        return r
+
+    bwd = ca.attention_bwd
+    ca.attention_bwd = lambda *a, **k: timed(
+        "attention backward (torch ops)", bwd, *a, **k)
+    named = dict(params.named_parameters())
+
+    def one_step():
+        nonlocal opt
+        grads = None
+        for i in range(OLMO_TRAIN["micro_batches"]):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss = timed("forward + loss", model.loss, params, part["tokens"],
+                         part["labels"])
+            g = timed("backward", torch.autograd.grad, loss,
+                      list(named.values()))
+            if grads is None:
+                grads = {n: torch.zeros_like(p, dtype=torch.float32)
+                         for n, p in named.items()}
+            for (n, _), x in zip(named.items(), g):
+                grads[n].add_(x.float() / OLMO_TRAIN["micro_batches"])
+            del g, loss
+        opt, _ = timed("optimizer", st.apply_update, cfg, params, opt, grads,
+                       AdamWConfig())
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for v in spans.values():
+            v.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one_step()
+            torch.cuda.synchronize()
+    finally:
+        ca.attention_bwd = bwd
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in spans.items()}
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and self_device_ms(e) > 0]
+    tot = sum(self_device_ms(e) for e in ev)
+    groups = {}
+    for e in ev:
+        grp = kernel_group(e.key)
+        groups[grp] = groups.get(grp, 0.0) + self_device_ms(e)
+    log(f"phase E(c) profile of one olmo-1b step: device {tot:.1f} ms, wall "
+        f"{wall * 1e3:.1f} ms without the profiler; device idle share "
+        f"{1 - tot / (wall * 1e3):.3f}; spans (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in span_ms.items()))
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:9.2f} ms {ms / tot:6.1%}  {grp}")
+    ev.sort(key=lambda e: -self_device_ms(e))
+    for e in ev[:10]:
+        log(f"    {self_device_ms(e):9.2f} ms {self_device_ms(e) / tot:6.1%} "
+            f"x{e.count:<5d} {e.key[:90]}")
+    del opt
+    return dict(device_ms=tot, wall_ms=wall * 1e3, idle=1 - tot / (wall * 1e3),
+                spans_ms=span_ms, groups_ms=groups)
+
+
+def check_resume(dev) -> dict:
+    """Phase E(d): the small OLMo preset on the card, uninterrupted and
+    crashed at step 5 then resumed from the step-4 checkpoint: the final
+    parameters bit for bit equal."""
+    import tempfile
+    from repro_torch.launch.train import train
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(RESUME_RUN, device=dev, log_every=100)
+        ref = train(ckpt_dir=f"{tmp}/a", **kw)
+        try:
+            train(ckpt_dir=f"{tmp}/b", fail_at_step=5, **kw)
+            raise SystemExit("phase E(d): the injected failure did not fire")
+        except RuntimeError:
+            pass
+        out = train(ckpt_dir=f"{tmp}/b", resume=True, **kw)
+    a = dict(ref["params"].named_parameters())
+    b = dict(out["params"].named_parameters())
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    log(f"phase E(d) crash at step 5 and resume ({RESUME_RUN}): "
+        f"{len(a) - len(differ)} of {len(a)} parameters bit-identical to the "
+        f"uninterrupted run; losses {[h['loss'] for h in ref['history']]}")
+    if differ:
+        raise SystemExit(f"phase E(d): resumed parameters differ: {differ[:4]}")
+    return dict(params=len(a), identical=True)
+
+
+def check_training(dev, smi) -> dict:
+    """Phase E: (a) kernel gradients, (b) reduced RecurrentGemma and
+    Qwen3-MoE steps, (c) OLMo-1B at full width, (d) crash and resume."""
+    t = [time.perf_counter()]
+    out = dict(kernels=check_train_kernels(dev))
+    t.append(time.perf_counter())
+    out["small"] = {a: check_train_small(dev, a)
+                    for a in ("recurrentgemma-9b", "qwen3-moe-30b-a3b")}
+    for a, r in out["small"].items():
+        # per micro-batch: a checkpointed rec layer scans forward, again in
+        # its recompute and once reversed; a moe layer runs 3 grouped
+        # matmuls forward, 3 in its recompute and 6 backward; an attention
+        # layer's flash kernel runs forward and in its recompute only
+        from repro_torch.configs import get_config
+        from repro_torch.models.stacks import layer_kinds
+        kinds = layer_kinds(get_config(a).reduced(head_dim=64))
+        n_rec = sum(k == "rec" for k in kinds)
+        n_moe = sum(k == "moe" for k in kinds)
+        n_att = len(kinds) - n_rec
+        expect_launches(f"phase E(b) {a} forward", r["fwd_launches"],
+                        dict(flash=n_att, rg_lru=n_rec, gmm=3 * n_moe))
+        expect_launches(f"phase E(b) {a} backward", r["bwd_launches"],
+                        dict(flash=n_att, rg_lru=2 * n_rec, gmm=9 * n_moe))
+    t.append(time.perf_counter())
+    out["olmo"] = check_olmo_train(dev, smi)
+    t.append(time.perf_counter())
+    out["resume"] = check_resume(dev)
+    t.append(time.perf_counter())
+    out["seconds"] = dict(zip("abcd", np.diff(t).tolist()))
+    log(f"phase E ({smi}): " + ", ".join(f"({k}) {v:.1f} s"
+                                         for k, v in out["seconds"].items()))
+    return out
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -3370,6 +3945,12 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"nvidia-smi: {smi}")
     log(f"device: {kind}, count {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--phase", "E"]:
+        # the training phase alone (a quicker check of the training path);
+        # prints no result line
+        check_training(dev, smi)
+        log(f"chip_smoke --phase E: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 2. kernels vs plain versions ----------------------------------------
     sched = round_robin(N_TORS, 1)
@@ -3846,6 +4427,11 @@ def main() -> int:
     log(f"phases A-D ({smi}): A {tB - tA:.1f} s, B {tC - tB:.1f} s, C "
         f"{tD - tC:.1f} s, D {time.perf_counter() - tD:.1f} s")
 
+    # -- E. training ----------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = check_training(dev, smi)
+
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
     # bytes each function must move: per packet its inputs and outputs,
@@ -4003,7 +4589,32 @@ def main() -> int:
                           plain_ms=gmm_t[f"{key}_plain_ms"],
                           library_ms=gmm_t[f"{key}_bmm_ms"], **gmm_bounds[key])
                 for key in gmm_bounds}))
+    # the training path: launches of the OLMo-1B run (E(c)) and of one
+    # micro-batch of the reduced models (E(b)), forward and backward; the
+    # gradient's times beside the plain version's autograd (E(a))
+    small = training["small"]
+    tk = training["kernels"]
+    train_entries = {
+        "flash_attention": dict(
+            olmo_train_launches=training["olmo"]["launches"]["flash"],
+            reduced_launches={a: dict(forward=r["fwd_launches"]["flash"],
+                                      backward=r["bwd_launches"]["flash"])
+                              for a, r in small.items()},
+            grads=tk["flash"]),
+        "rg_lru": dict(
+            reduced_launches={a: dict(forward=r["fwd_launches"]["rg_lru"],
+                                      backward=r["bwd_launches"]["rg_lru"])
+                              for a, r in small.items()},
+            grads=tk["rg_lru"]),
+        "grouped_matmul": dict(
+            reduced_launches={a: dict(forward=r["fwd_launches"]["gmm"],
+                                      backward=r["bwd_launches"]["gmm"])
+                              for a, r in small.items()},
+            grads=tk["grouped_matmul"]),
+    }
     for k in kernels:
+        if k["name"] in train_entries:
+            k["training"] = train_entries[k["name"]]
         if k["name"] in ("flash_attention", "decode_attention"):
             key = "flash" if k["name"] == "flash_attention" else "decode"
             k["qwen_launches"] = qwen_counts[key]

@@ -7,7 +7,10 @@ It imports ``torch`` and ``numpy`` only, never ``jax``, ``repro`` or
 :mod:`repro_torch.kernels` its hand-written CUDA kernels with their plain
 PyTorch versions. :mod:`repro_torch.models`, :mod:`repro_torch.configs` and
 :mod:`repro_torch.launch` carry the language-model serving path
-(``launch.serve``). Entry points run on CUDA unless given ``device="cpu"``.
+(``launch.serve``) and its trainer (``launch.train``, with
+:mod:`repro_torch.optim`, :mod:`repro_torch.data`,
+:mod:`repro_torch.checkpoint` and :mod:`repro_torch.elastic`). Entry
+points run on CUDA unless given ``device="cpu"``.
 """
 from . import configs, core, kernels, launch, models
 

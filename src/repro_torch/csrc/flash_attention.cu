@@ -59,7 +59,10 @@
 // -1e30, so masked keys weigh nothing and a row that sees no key at all
 // comes out zero. Rows past Lq and keys past S arrive from TMA as zeros;
 // the output is rounded to bfloat16, staged box by box and written by TMA
-// stores, which clip rows past Lq.
+// stores, which clip rows past Lq. Given a non-null lse (training), each
+// row also writes the log-sum-exp of its scores, m ln 2 + ln l in natural
+// units (m is kept in log2 units), float32 [BH, Lq]: the gradient
+// recomputes the softmax from it; the serve path passes null.
 //
 // Scheduling: the items run from the last query tile (the longest causal
 // walk) to the first, and within a query tile by q-head row, so the q
@@ -83,6 +86,7 @@ constexpr int kBQ = 128;        // query rows per block, 64 per consumer
 constexpr int kThreads = 384;   // a producer warpgroup and two consumers
 constexpr float kNegInf = -1e30f;   // the running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
@@ -551,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap to, const Shape sh,
-                 int32_t* __restrict__ next) {
+                 int32_t* __restrict__ next, float* __restrict__ lse) {
   using C = Cfg<HD>;
   constexpr int BK = C::kBK;
   constexpr int ST = C::kStages;
@@ -767,6 +771,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = r0 + row + 8 * h;
+        if (lse != nullptr && t4 == 0 && r < sh.Lq)
+          lse[static_cast<int64_t>(wk.bh) * sh.Lq + r] =
+              m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f));
         l[h] = 1.0f / fmaxf(l[h], 1e-30f);
       }
       const bool leader = (tid & 127) == 0;
@@ -805,7 +813,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int32_t* next, const Shape& sh, cudaStream_t stream) {
+           float* lse, int32_t* next, const Shape& sh, cudaStream_t stream) {
   using C = Cfg<HD>;
   static bool configured = false;   // set once, before any graph capture
   static int sms = 0;
@@ -831,7 +839,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (work >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(work < sms ? work : sms);
   flash_kernel<HD><<<grid, kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, to, sh, next);
+      tq, tk, tv, to, sh, next, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -839,10 +847,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The kernel is built for hd in {64, 128, 256} (HEAD_DIMS in the wrapper);
-// q, k, v and out are contiguous with 16-byte aligned bases; `next` is one
-// int32 in device memory, zero at the launch (the work items' counter).
+// q, k, v and out are contiguous with 16-byte aligned bases; `lse` is null
+// or float32 [BH, Lq] (each row's log-sum-exp); `next` is one int32 in
+// device memory, zero at the launch (the work items' counter).
 extern "C" int flash_launch(const void* q, const void* k, const void* v,
-                            void* out, void* next, int BH, int Lq, int S,
+                            void* out, void* lse, void* next, int BH,
+                            int Lq, int S,
                             int Hq, int Hkv, int hd, int causal, int window,
                             float softcap, float scale, int q_offset,
                             void* stream) {
@@ -853,13 +863,14 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
                  (Lq + kBQ - 1) / kBQ, softcap, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* n = static_cast<int32_t*>(next);
+  auto* f = static_cast<float*>(lse);
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, out, n, sh, st);
+      return launch<64>(q, k, v, out, f, n, sh, st);
     case 128:
-      return launch<128>(q, k, v, out, n, sh, st);
+      return launch<128>(q, k, v, out, f, n, sh, st);
     case 256:
-      return launch<256>(q, k, v, out, n, sh, st);
+      return launch<256>(q, k, v, out, f, n, sh, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,14 @@
-"""The sharded fabric's exchange primitives over ``torch.distributed``: the
-port of the fabric half of ``repro.distributed.collectives``.
+"""The sharded fabric's exchange primitives over ``torch.distributed``, and
+the pod fabric's collective planner: the port of
+``repro.distributed.collectives``.
+
+The planner (:class:`PodFabric`, :func:`ring_schedule`,
+:func:`plan_ring_allreduce`, :func:`allreduce_time_s`) is the reference's
+host arithmetic on the port's :mod:`repro_torch.core.topology`: the
+trainer's inter-pod gradient all-reduce planned against an OpenOptics
+schedule, either a ring the controller deploys for the collective
+(``aligned``) or an oblivious rotor, whose ring circuit is live 1 / (P - 1)
+of the slices.
 
 The sharded fabric (:func:`repro_torch.core.fabric.simulate_sharded`)
 keeps every per-ToR aggregate (occupancy map, backlog cuts, ``max_seq``,
@@ -23,9 +32,17 @@ process's all-reduces and the bytes of the tensors they reduced.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
 import torch
 
-__all__ = ["shard_group_offsets", "offsets_buffer", "earlier_offsets",
+from ..core.topology import Schedule, round_robin
+from ..optim.compression import CompressionConfig, compressed_bytes
+
+__all__ = ["PodFabric", "CollectivePlan", "plan_ring_allreduce",
+           "allreduce_time_s", "ring_schedule", "shard_group_offsets", "offsets_buffer", "earlier_offsets",
            "gather_node_row", "exchange_sum", "exchange_min", "exchange_max"]
 
 
@@ -124,3 +141,103 @@ def gather_node_row(local, n: int, group=None, rank=None, num_shards=None,
     exchange_sum(full, group)
     full = full.narrow(axis, 0, n)
     return full != 0 if is_bool else full
+
+
+# ---------------------------------------------------------------------------
+# the pod fabric's collective planner
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PodFabric:
+    """Inter-pod optical fabric model (the reference's defaults)."""
+    n_pods: int = 2
+    link_gbps: float = 400.0      # per pod-pair optical circuit
+    n_uplinks: int = 1
+    slice_us: float = 100.0
+    reconf_us: float = 10.0       # OCS guardband per slice
+
+    @property
+    def duty_cycle(self) -> float:
+        return self.slice_us / (self.slice_us + self.reconf_us)
+
+    @property
+    def slice_bytes(self) -> int:
+        return int(self.link_gbps / 8 * 1e3 * self.slice_us * self.duty_cycle)
+
+
+def ring_schedule(n_pods: int, fabric: PodFabric) -> Schedule:
+    """The schedule the controller deploys for a collective phase: a
+    static bidirectional ring p -> p +- 1 held for the phase."""
+    conn = np.full((1, n_pods, 2), -1, dtype=np.int32)
+    ids = np.arange(n_pods, dtype=np.int32)
+    conn[0, :, 0] = (ids + 1) % n_pods
+    conn[0, :, 1] = (ids - 1) % n_pods
+    return Schedule(conn, slice_us=fabric.slice_us, reconf_us=fabric.reconf_us)
+
+
+@dataclasses.dataclass
+class CollectivePlan:
+    """Slice-aligned transfer plan: rows (step, src_pod, dst_pod, slice,
+    bytes)."""
+    transfers: list[tuple[int, int, int, int, int]]
+    total_slices: int
+    total_bytes_per_link: int
+    schedule: Schedule
+
+    def time_s(self, fabric: PodFabric) -> float:
+        return self.total_slices * (fabric.slice_us + fabric.reconf_us) * 1e-6
+
+
+def plan_ring_allreduce(total_bytes: int, fabric: PodFabric,
+                        aligned: bool = True,
+                        compression: CompressionConfig | None = None
+                        ) -> CollectivePlan:
+    """Ring all-reduce = reduce-scatter + all-gather: 2 (P - 1) steps, each
+    moving total_bytes / P per link, every step mapped onto slices of the
+    deployed schedule in which its (p -> p + 1) circuit is live."""
+    P = fabric.n_pods
+    if compression is not None:
+        total_bytes = compressed_bytes(total_bytes // 4, compression)
+    if P == 1:
+        return CollectivePlan([], 0, 0, ring_schedule(1, fabric))
+    chunk = math.ceil(total_bytes / P)
+    sched = ring_schedule(P, fabric) if aligned \
+        else round_robin(P, fabric.n_uplinks, slice_us=fabric.slice_us,
+                         reconf_us=fabric.reconf_us)
+    T = sched.num_slices
+    slice_cap = fabric.slice_bytes
+    transfers = []
+    t = 0
+    for step in range(2 * (P - 1)):
+        # every pod p sends its chunk to p + 1 at once; slices in series
+        remaining = chunk
+        while remaining > 0:
+            guard = 0
+            while not sched.has_circuit(0, 1 % P, t) and guard <= T:
+                t += 1
+                guard += 1
+            if guard > T:
+                raise RuntimeError("schedule never provides ring circuits")
+            sent = min(remaining, slice_cap)
+            for p in range(P):
+                transfers.append((step, p, (p + 1) % P, t, sent))
+            remaining -= sent
+            t += 1
+    return CollectivePlan(transfers, t, 2 * (P - 1) * chunk, sched)
+
+
+def allreduce_time_s(total_bytes: int, fabric: PodFabric, aligned: bool,
+                     compression: CompressionConfig | None = None) -> float:
+    """Closed-form time (the plan's slice count up to rounding): a ring
+    all-reduce moves 2 (P - 1) / P x B per link, at duty_cycle x rate when
+    aligned and duty_cycle / (P - 1) x rate on an oblivious rotor."""
+    P = fabric.n_pods
+    if P == 1:
+        return 0.0
+    if compression is not None:
+        total_bytes = compressed_bytes(total_bytes // 4, compression)
+    bytes_per_link = 2 * (P - 1) / P * total_bytes
+    rate = fabric.link_gbps / 8 * 1e9 * fabric.duty_cycle
+    if not aligned:
+        rate /= max(P - 1, 1)
+    return bytes_per_link / rate

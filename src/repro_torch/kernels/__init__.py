@@ -9,7 +9,10 @@ kernel on CUDA.
 The fabric's main path runs ``time_flow_lookup`` and ``admission``; the
 language-model serving path runs ``flash_attention`` (prefill),
 ``decode_attention`` (decode), ``rg_lru`` (the RG-LRU scan at prefill) and
-``grouped_matmul`` (the MoE expert products).
+``grouped_matmul`` (the MoE expert products). Training reaches the last
+three through ``autograd.Function``s: ``rg_lru.RGLRUFn`` and
+``grouped_matmul.GroupedMatmulFn`` here, whose backward passes are the
+same kernels, and ``models.chunked_attention.FlashAttentionFn``.
 """
 from . import (admission, decode_attention, flash_attention, grouped_matmul,
                rg_lru, time_flow_lookup)

@@ -30,6 +30,12 @@ torch and holds it against the plain version and the Pallas kernel.
 :func:`flash_attention` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a
 fallback). ``launches`` counts kernel launches.
+
+With ``lse=True`` both also return the log-sum-exp of each query row's
+masked, soft-capped and scaled scores, ``[B*Hq, Lq]`` float32: the kernel
+writes it from its online softmax's running max and sum at the end of
+each row, the plain version takes ``torch.logsumexp``. The gradient
+(``repro_torch.models.chunked_attention``) reads it.
 """
 from __future__ import annotations
 
@@ -49,10 +55,10 @@ launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, out, next, BH, Lq, S, Hq, Hkv, hd, causal, window, softcap,
-    # scale, q_offset, stream
-    "flash_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                      _F, _I, _P], ctypes.c_int),
+    # q, k, v, out, lse (or null), next, BH, Lq, S, Hq, Hkv, hd, causal,
+    # window, softcap, scale, q_offset, stream
+    "flash_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _F, _I, _P], ctypes.c_int),
 }
 
 
@@ -136,7 +142,7 @@ def tile_plan(Lq: int, S: int, hd: int, *, causal: bool = True,
 def flash_attention_plain(q, k, v, *, n_q_heads: int, n_kv_heads: int,
                           causal: bool = True, window: int = 0,
                           softcap: float = 0.0, scale: float | None = None,
-                          q_offset: int = 0):
+                          q_offset: int = 0, lse: bool = False):
     """The plain PyTorch version: the whole score matrix in float32, masked,
     softmaxed and multiplied with V in float32. Same arguments as
     :func:`flash_attention`; runs on any device."""
@@ -153,8 +159,10 @@ def flash_attention_plain(q, k, v, *, n_q_heads: int, n_kv_heads: int,
     mask = attention_mask(Lq, S, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, NEG_INF)
-    out = torch.softmax(s, dim=-1) @ vh
-    return out.reshape(BH, Lq, hd).to(q.dtype)
+    out = (torch.softmax(s, dim=-1) @ vh).reshape(BH, Lq, hd).to(q.dtype)
+    if lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(BH, Lq)
+    return out
 
 
 def _require_cuda(q, k, v):
@@ -191,36 +199,41 @@ def _check(q, k, v, n_q_heads, n_kv_heads):
 def flash_attention(q, k, v, *, n_q_heads: int, n_kv_heads: int,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,
-                    q_offset: int = 0):
+                    q_offset: int = 0, lse: bool = False):
     """GQA attention with online softmax.
 
     q: ``[B*Hq, Lq, hd]``; k, v: ``[B*Hkv, S, hd]``. ``window > 0`` keeps
     keys with ``kpos > qpos - window``; ``softcap > 0`` applies ``tanh(s /
     softcap) * softcap`` to the scaled scores; ``scale`` defaults to
-    ``1 / sqrt(hd)``. Returns ``[B*Hq, Lq, hd]`` in q's dtype.
+    ``1 / sqrt(hd)``. Returns ``[B*Hq, Lq, hd]`` in q's dtype, and with
+    ``lse=True`` also each row's log-sum-exp ``[B*Hq, Lq]`` float32.
     """
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, n_q_heads=n_q_heads, n_kv_heads=n_kv_heads,
             causal=causal, window=window, softcap=softcap, scale=scale,
-            q_offset=q_offset)
+            q_offset=q_offset, lse=lse)
     _require_cuda(q, k, v)
     _check(q, k, v, n_q_heads, n_kv_heads)
     BH, Lq, hd = q.shape
     out = torch.empty_like(q)
+    row_lse = (torch.empty((BH, Lq), dtype=torch.float32, device=q.device)
+               if lse else None)
     if q.numel() == 0:
-        return out
+        return (out, row_lse) if lse else out
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     lib = _build.load("flash_attention", _SIGNATURES)
     # the persistent blocks take their work items from this counter
     next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
     _build.launch(
         lib.flash_launch, "flash_attention", q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), next_item.data_ptr(), BH, Lq,
+        v.data_ptr(), out.data_ptr(),
+        None if row_lse is None else row_lse.data_ptr(),
+        next_item.data_ptr(), BH, Lq,
         k.shape[1], n_q_heads,
         n_kv_heads, hd, int(causal), int(window), float(softcap),
         float(scale), int(q_offset),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches += 1
-    return out
+    return (out, row_lse) if lse else out

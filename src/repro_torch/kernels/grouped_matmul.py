@@ -24,6 +24,10 @@ version gives NaN.
 :func:`grouped_matmul` dispatches by the device of its inputs: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an error, never a
 fallback). ``launches`` counts kernel launches.
+
+:class:`GroupedMatmulFn` is the product with its gradient: two more
+grouped matmuls, ``dx = dy @ w^T`` and ``dw = x^T @ dy`` group by group, on
+contiguous transposes.
 """
 from __future__ import annotations
 
@@ -96,3 +100,25 @@ def grouped_matmul(x, w):
                   torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     return out
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """:func:`grouped_matmul` with its gradient, each product the kernel on
+    CUDA tensors and the plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return grouped_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = grouped_matmul(x.transpose(1, 2).contiguous(),
+                                dy).to(w.dtype)
+        return dx, dw

@@ -18,6 +18,13 @@ the tolerance of ``tests/test_kernels.py``).
 :func:`rg_lru` dispatches by the device of its inputs: the plain version
 for CPU tensors, the kernel for CUDA tensors (or an error, never a
 fallback). ``launches`` counts calls of the kernel, one per call.
+
+:class:`RGLRUFn` is the scan's gradient. The adjoint ``g_t = dh_t +
+a_{t+1} g_{t+1}`` is the same recurrence run backwards, so its backward is
+one more :func:`rg_lru` call on reversed inputs (the kernel on the card):
+the coefficients are ``a`` shifted one step earlier with a zero at the
+end, then reversed; ``db = g`` and ``da = g * h_{t-1}`` with ``h_{-1} =
+0``.
 """
 from __future__ import annotations
 
@@ -135,3 +142,30 @@ def rg_lru(a, b):
                   torch.cuda.current_stream(a.device).cuda_stream)
     launches += 1
     return h
+
+
+def rg_lru_grads(a, h, dh):
+    """(da, db) of ``h = rg_lru(a, b)`` for the output gradient ``dh``,
+    from ``a`` and ``h``: one reversed :func:`rg_lru` call."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+    g = rg_lru(torch.flip(a_next, [1]).contiguous(),
+               torch.flip(dh.float(), [1]).contiguous())
+    g = torch.flip(g, [1])
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    return g * h_prev, g
+
+
+class RGLRUFn(torch.autograd.Function):
+    """:func:`rg_lru` with its gradient (:func:`rg_lru_grads`): both passes
+    are the kernel on CUDA tensors and the plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rg_lru(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rg_lru_grads(a, h, dh)

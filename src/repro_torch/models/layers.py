@@ -9,7 +9,11 @@ those places: :func:`attn_apply` runs ``kernels.flash_attention`` at
 prefill and ``kernels.decode_attention`` at decode, :func:`rglru_apply`
 runs ``kernels.rg_lru`` at prefill, and :func:`moe_apply` runs the three
 expert products through ``kernels.grouped_matmul`` (the reference's
-einsums). On CPU tensors the kernels' plain versions run instead. The
+einsums). On CPU tensors the kernels' plain versions run instead. When
+autograd records (a trainer made the parameters trainable), the same calls
+go through the kernels' ``autograd.Function``s:
+``chunked_attention.FlashAttentionFn``, ``rg_lru.RGLRUFn`` and
+``grouped_matmul.GroupedMatmulFn``. The
 large projections (``x @ w``) are ``torch.matmul``, as the reference leaves
 them to XLA; a bfloat16 product returns bfloat16, as in JAX.
 
@@ -48,12 +52,41 @@ from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
 from ..kernels import grouped_matmul as _gmm
 from ..kernels import rg_lru as _rg_lru
+from .chunked_attention import FlashAttentionFn
 from .config import ArchConfig
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    # frozen until a trainer calls ``requires_grad_()`` on the stack
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _grad(*xs) -> bool:
+    """Whether autograd records a function of ``xs``: training then goes
+    through the kernels' ``autograd.Function``s, serving through the plain
+    kernel calls."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _attend(q, k, v, cfg: ArchConfig, *, n_q_heads: int, n_kv_heads: int,
+            causal: bool, softcap: float, scale: float, window: int = 0):
+    """Flash attention of the layer's q [B*Hq, L, hd] against k, v [B*Hkv,
+    S, hd]; through :class:`FlashAttentionFn` when a gradient is wanted,
+    with the reference's backward blocks ``cfg.attn_bq`` / ``attn_bk``."""
+    if _grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, n_q_heads, n_kv_heads, causal,
+                                      window, softcap, scale, 0, cfg.attn_bq,
+                                      cfg.attn_bk)
+    return _flash.flash_attention(q, k, v, n_q_heads=n_q_heads,
+                                  n_kv_heads=n_kv_heads, causal=causal,
+                                  window=window, softcap=softcap, scale=scale)
+
+
+def _gmm_apply(x, w):
+    if _grad(x, w):
+        return _gmm.GroupedMatmulFn.apply(x, w)
+    return _gmm.grouped_matmul(x, w)
 
 
 def _normal_(p: nn.Parameter, gen: torch.Generator, scale: float) -> None:
@@ -229,9 +262,9 @@ def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
     qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
     kf = k.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
-    of = _flash.flash_attention(qf, kf, vf, n_q_heads=hq, n_kv_heads=hkv,
-                                causal=causal, window=window,
-                                softcap=cfg.attn_softcap, scale=scale)
+    of = _attend(qf, kf, vf, cfg, n_q_heads=hq, n_kv_heads=hkv,
+                 causal=causal, window=window, softcap=cfg.attn_softcap,
+                 scale=scale)
     out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
     return out @ p.wo, new_cache
 
@@ -276,7 +309,7 @@ def cross_attend(p: Attention, x, cfg: ArchConfig, kv: AttnCache):
     qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
     kf = kv.k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
     vf = kv.v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
-    of = _flash.flash_attention(qf, kf, vf, causal=False, **kw)
+    of = _attend(qf, kf, vf, cfg, causal=False, **kw)
     out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
     return out @ p.wo
 
@@ -409,9 +442,8 @@ def _moe_dispatch(p: MoE, x, cfg: ArchConfig):
     xe = x.new_zeros(n_slots + 1, d)
     xe[slot] = x.reshape(R * T, d)[src]
     xe = xe[:-1].view(E, R * C, d)
-    h = _act(cfg, _gmm.grouped_matmul(xe, p.w_gate)) * \
-        _gmm.grouped_matmul(xe, p.w_up)
-    ye = _gmm.grouped_matmul(h, p.w_down).view(n_slots, d)
+    h = _act(cfg, _gmm_apply(xe, p.w_gate)) * _gmm_apply(xe, p.w_up)
+    ye = _gmm_apply(h, p.w_down).view(n_slots, d)
 
     # slot -> token row (R * T, the trash row, for empty slots) and gate
     tok = torch.full((n_slots + 1,), R * T, dtype=torch.int64, device=x.device)
@@ -480,7 +512,8 @@ def rglru_apply(p: RGLRU, x, cfg: ArchConfig, *, state=None,
             shifted = F.pad(u, (0, 0, i, 0))[:, :L]
             conv = conv + shifted * p.conv[cw - 1 - i]
         a, b = _rglru_coeffs(p, conv)
-        hh = _rg_lru.rg_lru(a, b)
+        hh = (_rg_lru.RGLRUFn.apply(a, b) if _grad(a, b)
+              else _rg_lru.rg_lru(a, b))
         new_state = hh[:, -1]
         # the last conv_width inputs become the decode-time conv state
         new_conv = F.pad(u, (0, 0, cw - 1, 0))[:, L - 1:L - 1 + cw]

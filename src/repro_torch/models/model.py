@@ -1,12 +1,18 @@
 """Model facade, the weight carrier, and analytic parameter accounting
 (the counterpart of ``repro.models.model``).
 
-:class:`Model` mirrors the reference's facade for the serving path:
-``init`` draws the parameters, ``init_cache``, ``prefill`` and
-``decode_step`` run the stack. :func:`params_from_numpy` carries a
-parameter tree of the reference (nested dicts of float32 numpy arrays) over
-to the port. :func:`count_params` and :func:`model_flops` are the
-reference's numpy arithmetic, copied.
+:class:`Model` mirrors the reference's facade: ``init`` draws the
+parameters, ``train_logits`` and ``loss`` run the training forward,
+``init_cache``, ``prefill`` and ``decode_step`` the serving path;
+``trainable`` makes the parameters require gradients.
+:func:`params_from_numpy` carries a parameter tree of the reference
+(nested dicts of float32 numpy arrays) over to the port and
+:func:`params_to_numpy` back. The reference's tree maps onto the port's
+parameter names, so that trees keyed by those names
+(gradients, optimizer state) can be written in the reference's layout
+(:func:`to_reference_tree`, for checkpoints) and read back
+(:func:`from_reference_tree`). :func:`count_params` and
+:func:`model_flops` are the reference's numpy arithmetic, copied.
 """
 from __future__ import annotations
 
@@ -35,6 +41,18 @@ class Model:
         with torch.no_grad():
             params.reset_parameters(gen)
         return params
+
+    def trainable(self, params: stacks.Stack) -> stacks.Stack:
+        """Make every parameter require gradients (they are frozen as
+        built); returns ``params``."""
+        return params.requires_grad_(True)
+
+    def train_logits(self, params, tokens, frontend_embeds=None):
+        return stacks.train_logits(params, self.cfg, tokens, frontend_embeds)
+
+    def loss(self, params, tokens, labels, frontend_embeds=None):
+        return stacks.loss_fn(params, self.cfg, tokens, labels,
+                              frontend_embeds)
 
     def init_cache(self, batch: int, seq_len: int, device=None,
                    enc_len: int | None = None):
@@ -124,6 +142,124 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> stacks.Stack:
 def _index_tree(tree: dict, g: int) -> dict:
     return {k: _index_tree(v, g) if isinstance(v, dict) else v[g]
             for k, v in tree.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A leaf of the reference's parameter tree in the port: the names of
+    the port's parameters it holds, one per layer of a pattern position
+    stacked on a leading ``[n_groups]`` axis when ``stacked``."""
+    names: tuple[str, ...]
+    stacked: bool
+
+
+def _module_layout(m: nn.Module, prefix: str) -> dict:
+    # a module's parameters and sub-modules under the reference's names (a
+    # norm without a scale is the reference's empty dict)
+    out = {n: Leaf((prefix + n,), False) for n, p in m._parameters.items()
+           if p is not None}
+    for n, c in m.named_children():
+        if n not in ("layers", "enc_layers"):
+            out[n] = _module_layout(c, f"{prefix}{n}.")
+    return out
+
+
+def _stacked(trees: list[dict]) -> dict:
+    return {k: (_stacked([t[k] for t in trees]) if isinstance(v, dict)
+                else Leaf(tuple(t[k].names[0] for t in trees), True))
+            for k, v in trees[0].items()}
+
+
+def _layout(cfg: ArchConfig, params: stacks.Stack) -> dict:
+    """The reference's parameter tree (``groups`` stacked over the pattern
+    groups, ``tail``, an enc-dec model's ``enc_groups``) with each leaf a
+    :class:`Leaf` of the port's parameter names."""
+    tree = _module_layout(params, "")
+    n_pat = len(cfg.pattern)
+    tree["groups"] = {
+        f"{kind}{i}": _stacked([
+            _module_layout(params.layers[g * n_pat + i],
+                           f"layers.{g * n_pat + i}.")
+            for g in range(cfg.n_groups)])
+        for i, kind in enumerate(cfg.pattern)}
+    base = cfg.n_groups * n_pat
+    tree["tail"] = {f"tail_{kind}{i}": _module_layout(
+        params.layers[base + i], f"layers.{base + i}.")
+        for i, kind in enumerate(cfg.tail)}
+    if cfg.enc_dec:
+        tree["enc_groups"] = {"enc0": _stacked([
+            _module_layout(layer, f"enc_layers.{i}.")
+            for i, layer in enumerate(params.enc_layers)])}
+    return tree
+
+
+def _layout_map(fn, layout):
+    return {k: _layout_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in layout.items()}
+
+
+def to_reference_tree(cfg: ArchConfig, params: stacks.Stack,
+                      values: dict | None = None) -> dict:
+    """The reference's tree of ``values`` (a dict keyed by the port's
+    parameter names, such as ``mu`` of the optimizer; default the
+    parameters themselves, detached), stacked leaves ``torch.stack``ed."""
+    if values is None:
+        values = {n: p.detach() for n, p in params.named_parameters()}
+    return _layout_map(
+        lambda lf: (torch.stack([values[n] for n in lf.names]) if lf.stacked
+                    else values[lf.names[0]]),
+        _layout(cfg, params))
+
+
+def from_reference_tree(cfg: ArchConfig, params: stacks.Stack,
+                        tree: dict) -> dict:
+    """The inverse of :func:`to_reference_tree`: a dict keyed by the port's
+    parameter names, stacked leaves split into their layers."""
+    out = {}
+
+    def walk(layout, sub, path):
+        for k, lf in layout.items():
+            if k not in sub:
+                raise KeyError(f"reference tree has no leaf {path}{k}")
+            if isinstance(lf, dict):
+                walk(lf, sub[k], f"{path}{k}.")
+            elif lf.stacked:
+                out.update(zip(lf.names, sub[k]))
+            else:
+                out[lf.names[0]] = sub[k]
+
+    walk(_layout(cfg, params), tree, "")
+    return out
+
+
+def params_to_numpy(cfg: ArchConfig, params: stacks.Stack) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's parameter
+    tree, groups restacked to ``[n_groups, ...]``, every leaf a float32
+    numpy array."""
+    return _layout_map(lambda x: x.float().cpu().numpy(),
+                       {"": to_reference_tree(cfg, params)})[""]
+
+
+def decay_mask(cfg: ArchConfig, params: stacks.Stack) -> dict:
+    """Which parameters AdamW's weight decay reaches, by the port's names:
+    those whose reference leaf has two or more dims. The reference decays
+    "matrices only" by leaf rank, so a vector stacked over the pattern
+    groups (a norm scale, ``lam``) is decayed and the same vector in the
+    tail or at the top is not; the port keeps that."""
+    out = {}
+    for lf in _leaves_of(_layout(cfg, params)):
+        p = params.get_parameter(lf.names[0])
+        for n in lf.names:
+            out[n] = p.dim() + int(lf.stacked) >= 2
+    return out
+
+
+def _leaves_of(layout):
+    for v in layout.values():
+        if isinstance(v, dict):
+            yield from _leaves_of(v)
+        else:
+            yield v
 
 
 # ---------------------------------------------------------------------------

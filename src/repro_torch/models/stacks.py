@@ -1,12 +1,18 @@
 """Model stack of the port: the layer sequence ``pattern x n_groups + tail``
 as a Python loop over layers (the reference scans over pattern groups with
-stacked parameters and rematerialisation; the port keeps one module per
-layer and no autograd state).
+stacked parameters; the port keeps one module per layer).
 
-Two entry points share the layer code, as in ``repro.models.stacks``:
+Three entry points share the layer code, as in ``repro.models.stacks``:
 
+  ``train_logits`` full-sequence causal forward (no cache), under autograd;
+                   ``loss_fn`` is its next-token cross entropy
   ``prefill``      full-sequence forward that also fills the caches
   ``decode_step``  one token against the caches / recurrent states
+
+With ``cfg.remat == "layer"`` the training forward checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant): the backward recomputes the
+layer's forward, as the reference's ``jax.checkpoint`` of each pattern
+group does.
 
 Frontends, as in the reference: a vision model (a frontend, not enc-dec)
 projects its patch embeddings with ``frontend_proj`` and puts them before
@@ -31,6 +37,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as ly
 from .config import ArchConfig
@@ -148,10 +155,11 @@ def _layer_apply(layer: Layer, x, cfg: ArchConfig, positions, cache,
             conv_state=None if cache is None else cache[1])
     else:
         window = cfg.window if kind in ("local", "attn") else 0
+        self_cache = cache[0] if cache is not None and kind == "dec" \
+            else cache
         y, nc = ly.attn_apply(layer.attn, layer.norm1(x), cfg,
                               positions=positions, causal=kind != "enc",
-                              window=window,
-                              cache=cache[0] if kind == "dec" else cache,
+                              window=window, cache=self_cache,
                               write_index=write_index)
     x = x + y
     if kind == "dec":
@@ -218,6 +226,18 @@ def _run(p: Stack, cfg: ArchConfig, x, positions, caches, write_index,
     return p.final_norm(x), new_caches
 
 
+def _train_layers(layers, cfg: ArchConfig, x, positions, memory=None):
+    """The layers without caches; each checkpointed under ``remat="layer"``
+    while autograd records."""
+    remat = cfg.remat == "layer" and torch.is_grad_enabled()
+    for layer in layers:
+        def body(x, layer=layer):
+            return _layer_apply(layer, x, cfg, positions, None, None,
+                                memory)[0]
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    return x
+
+
 def _encoder(p: Stack, cfg: ArchConfig, frontend_embeds):
     """The encoder of an enc-dec model: the frontend's embeddings (rounded
     to bfloat16, as the reference does whatever the weights' dtype) through
@@ -227,8 +247,7 @@ def _encoder(p: Stack, cfg: ArchConfig, frontend_embeds):
         @ p.frontend_proj
     B, Le, _ = fx.shape
     pos = _positions(B, Le, fx.device)
-    for layer in p.enc_layers:
-        fx, _ = _layer_apply(layer, fx, cfg, pos, None, None)
+    fx = _train_layers(p.enc_layers, cfg, fx, pos)
     return p.enc_final_norm(fx), pos
 
 
@@ -244,15 +263,10 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
             for kind in layer_kinds(cfg)]
 
 
-@torch.no_grad()
-def prefill(p: Stack, cfg: ArchConfig, tokens, cache, frontend_embeds=None):
-    """Full-sequence forward filling the caches; tokens: [B, L] on the
-    parameters' device. A vision model's ``frontend_embeds`` [B, F,
-    frontend_dim] are projected and put before the tokens (positions 0 ..
-    F + L - 1); an enc-dec model's are encoded, and its ``dec`` layers
-    project their cross K/V from the memory into the cache. Returns
-    (last-token logits [B, 1, V] float32, new cache)."""
-    B, L = tokens.shape
+def _embed(p: Stack, cfg: ArchConfig, tokens, frontend_embeds):
+    """Token embeddings, after a vision model's projected patches, scaled
+    for the gemma family; and an enc-dec model's encoder memory (None for
+    the others)."""
     x = p.embed[tokens]
     if cfg.frontend is not None and not cfg.enc_dec and \
             frontend_embeds is not None:
@@ -262,9 +276,49 @@ def prefill(p: Stack, cfg: ArchConfig, tokens, cache, frontend_embeds=None):
     memory = None
     if cfg.enc_dec:
         if frontend_embeds is None:
-            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              "frontend_embeds")
         memory = _encoder(p, cfg, frontend_embeds)
+    return x, memory
+
+
+def train_logits(p: Stack, cfg: ArchConfig, tokens, frontend_embeds=None):
+    """The full-sequence forward without caches, as the reference's
+    ``train_logits``: logits [B, F + L, V] float32 (F the vision prefix's
+    length, 0 for other models). Runs under autograd when the parameters
+    are trainable."""
+    B = tokens.shape[0]
+    x, memory = _embed(p, cfg, tokens, frontend_embeds)
+    x = _train_layers(p.layers, cfg, x, _positions(B, x.shape[1], x.device),
+                      memory)
+    return _logits(p, cfg, p.final_norm(x))
+
+
+def loss_fn(p: Stack, cfg: ArchConfig, tokens, labels, frontend_embeds=None):
+    """Next-token cross entropy, as the reference's ``loss_fn``: the mean
+    NLL over ``labels >= 0`` on float32 logits; a vision prefix carries no
+    loss (the text tail is scored). The label's log-probability is a
+    gather, the number the reference's one-hot contraction gives."""
+    logits = train_logits(p, cfg, tokens, frontend_embeds)
+    if logits.shape[1] != labels.shape[1]:  # frontend prefix: score the tail
+        logits = logits[:, -labels.shape[1]:]
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp(min=1)
+
+
+@torch.no_grad()
+def prefill(p: Stack, cfg: ArchConfig, tokens, cache, frontend_embeds=None):
+    """Full-sequence forward filling the caches; tokens: [B, L] on the
+    parameters' device. A vision model's ``frontend_embeds`` [B, F,
+    frontend_dim] are projected and put before the tokens (positions 0 ..
+    F + L - 1); an enc-dec model's are encoded, and its ``dec`` layers
+    project their cross K/V from the memory into the cache. Returns
+    (last-token logits [B, 1, V] float32, new cache)."""
+    B = tokens.shape[0]
+    x, memory = _embed(p, cfg, tokens, frontend_embeds)
     x, new_cache = _run(p, cfg, x, _positions(B, x.shape[1], x.device), cache,
                         0, memory)
     return _logits(p, cfg, x[:, -1:]), new_cache

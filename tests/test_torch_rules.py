@@ -67,7 +67,9 @@ def test_port_imports_with_jax_repro_networkx_blocked():
             "    sys.modules[m] = None\n"
             "import repro_torch, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.models, repro_torch.configs\n"
-            "import repro_torch.launch.serve\n")
+            "import repro_torch.launch.serve, repro_torch.launch.train\n"
+            "import repro_torch.optim, repro_torch.data, repro_torch.elastic\n"
+            "import repro_torch.checkpoint, repro_torch.launch.steps\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -459,3 +461,68 @@ def test_library_name_follows_headers(monkeypatch, tmp_path):
     header.write_text("// two\n")
     assert _build.library_path("k") != first
     assert (ROOT / "src" / "repro_torch" / "csrc" / "hopper.cuh").exists()
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def test_training_entry_points_without_cuda_raise(monkeypatch):
+    """``train`` and ``make_train_step`` run on CUDA unless given
+    ``device="cpu"``: without a card they raise."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("olmo-1b").reduced()
+    for call in (lambda: train(steps=1, global_batch=2, seq=8),
+                 lambda: train(steps=1, global_batch=2, seq=8, device="cuda"),
+                 lambda: make_train_step(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_training_functions_launch_or_raise(no_kernel_library):
+    """The kernels' autograd Functions on tensors that are not on the CPU
+    go to the kernels (here refused, ``meta`` tensors), never to the plain
+    versions, and count no launch."""
+    from repro_torch.models.chunked_attention import FlashAttentionFn
+    counts = (Q_fa.launches, Q_rl.launches, Q_gmm.launches)
+    q, k, v = _flash_args("meta")
+    a = torch.empty(1, 8, 4, device="meta")
+    x = torch.empty(2, 3, 16, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(2, 16, 8, dtype=torch.bfloat16, device="meta")
+    for call in (lambda: FlashAttentionFn.apply(q, k, v, 4, 2, True, 0, 0.0,
+                                                0.1, 0, 8, 8),
+                 lambda: Q_rl.RGLRUFn.apply(a, a),
+                 lambda: Q_gmm.GroupedMatmulFn.apply(x, w)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (Q_fa.launches, Q_rl.launches, Q_gmm.launches) == counts
+
+
+def test_training_entry_points_present_and_run(monkeypatch, capsys):
+    """The trainer's command line, the step builders and the ML-fabric
+    example run on the CPU."""
+    import json
+    import runpy
+    from repro_torch.launch import steps, train
+    from repro_torch.models.config import SHAPES
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--device", "cpu", "--steps", "2", "--global-batch", "2",
+        "--seq", "16", "--micro-batches", "1", "--compression", "topk"])
+    train.main()
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("{"):])
+    assert summary["device"] == "cpu" and np.isfinite(summary["final_loss"])
+    cfg = get_config("olmo-1b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 6))
+    nxt, cache = steps.make_prefill_step(cfg)(
+        params, {"tokens": toks, "cache": model.init_cache(2, 8, "cpu")})
+    tok, _ = steps.make_serve_step(cfg)(params, nxt[:, None], cache, 6)
+    assert tok.shape == (2, 1) and tok.dtype == torch.int32
+    assert steps.shape_supported(cfg, SHAPES["long_500k"])[0] is False
+    assert steps.shape_supported(cfg, SHAPES["train_4k"]) == (True, "")
+    runpy.run_path(str(ROOT / "examples" / "hierarchical_ml_fabric_torch.py"))
+    assert "every transfer rides a live circuit" in capsys.readouterr().out
