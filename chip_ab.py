@@ -22,13 +22,20 @@ without the profiler (three runs), and its device ms, wall ms, CUDA
 kernels launched and the twelve costliest kernels per slice under the
 profiler. With ``--profile`` each turn
 also runs ``chip_smoke.profile_serve`` on RecurrentGemma-9B (phase 11's
-profile of a full-depth prefill and 8 decode steps). Prints one JSON line
-per turn and the card's name and power limit.
+profile of a full-depth prefill and 8 decode steps). With ``--serve
+ARCH`` (repeatable) each turn also runs that tree's ``repro_torch.launch.
+serve`` on ARCH at full width and depth (random weights; 4 requests, one
+batch of 4, a 512-token prompt, 64 new tokens, a cache of 1,024) and
+reports its prefill seconds and decode ms per token (the host waits for
+every step); ``--no-kernels`` leaves out the kernels' timing and the
+phase-6 window. Prints one JSON line per turn and the card's name and
+power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -146,6 +153,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", required=True, type=Path)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--serve", action="append", default=[], metavar="ARCH")
+    ap.add_argument("--no-kernels", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -158,22 +167,47 @@ def main() -> int:
     ok = True
     for name, tree in (("base", args.base), ("this", ROOT), ("this", ROOT),
                        ("base", args.base)):
-        out = subprocess.run(
-            [sys.executable, "-c", TURN, str(tree.resolve()),
-             "1" if args.profile else "0"],
-            capture_output=True, text=True, timeout=1200)
-        for line in out.stdout.splitlines():
-            if line.startswith(("TIMES ", "PROFILE ")):
-                kind, _, body = line.partition(" ")
-                print(json.dumps({"tree": name, kind.lower(): json.loads(body)}),
-                      flush=True)
-            elif line.startswith("phase") or line.startswith("  "):
-                print(f"[{name}] {line}", flush=True)
-        if out.returncode != 0:
-            print(f"[{name}] exit {out.returncode}: {out.stderr[-2000:]}",
-                  flush=True)
-            ok = False
+        if not args.no_kernels:
+            out = subprocess.run(
+                [sys.executable, "-c", TURN, str(tree.resolve()),
+                 "1" if args.profile else "0"],
+                capture_output=True, text=True, timeout=1200)
+            for line in out.stdout.splitlines():
+                if line.startswith(("TIMES ", "PROFILE ")):
+                    kind, _, body = line.partition(" ")
+                    print(json.dumps({"tree": name,
+                                      kind.lower(): json.loads(body)}),
+                          flush=True)
+                elif line.startswith("phase") or line.startswith("  "):
+                    print(f"[{name}] {line}", flush=True)
+            if out.returncode != 0:
+                print(f"[{name}] exit {out.returncode}: "
+                      f"{out.stderr[-2000:]}", flush=True)
+                ok = False
+        for arch in args.serve:
+            ok &= serve_turn(name, tree, arch)
     return 0 if ok else 1
+
+
+SERVE_ARGS = ["--preset", "full", "--requests", "4", "--batch", "4",
+              "--prompt-len", "512", "--max-new", "64", "--cache-len", "1024"]
+
+
+def serve_turn(name: str, tree: Path, arch: str) -> bool:
+    """One serve of ``arch`` by ``tree``'s port, in a process of its own;
+    prints its result line. Returns whether it ran."""
+    src = str((tree / "src").resolve())
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         *SERVE_ARGS], capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=src), cwd=src)
+    if out.returncode != 0:
+        print(f"[{name}] serve {arch} exit {out.returncode}: "
+              f"{out.stderr[-2000:]}", flush=True)
+        return False
+    res = json.loads(out.stdout[out.stdout.index("{"):])
+    print(json.dumps({"tree": name, "serve": arch, **res}), flush=True)
+    return True
 
 
 if __name__ == "__main__":

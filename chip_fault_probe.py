@@ -2,6 +2,7 @@
 """Fault probe of ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
     python3 chip_fault_probe.py ["fault name" ...]
+    python3 chip_fault_probe.py --cpu ["fault name" ...]
 
 With names, only those faults are planted, and the unchanged tree runs
 only the phases they name.
@@ -30,7 +31,13 @@ cross-attention against a plain computation) and D (LLaVA's serve, its
 first decode step against the prefill of the prompt and token) catch a
 wrong model layer or serve loop; and whether phase E (each kernel's
 gradient on the card against autograd through its plain version) catches
-a wrong gradient. For the unchanged tree and for each
+a wrong gradient; and whether phase F (the expert-parallel MoE on one
+NCCL rank against one device, on two gloo ranks against one) catches a
+wrong expert-parallel branch. Faults that only the CPU tests catch
+(``CPU_TESTS``, which need ``jax``: the sharding rules against the
+reference's) are probed with ``--cpu``, where no card is needed: the
+planted copy's tests run under pytest, and a failing test catches the
+fault. For the unchanged tree and for each
 planted fault, ``src/`` and ``chip_smoke.py`` are copied into a temporary
 directory, the fault is planted by an exact text substitution in one
 source (a CUDA kernel, or a kernel's wrapper), and the checks run there in
@@ -41,6 +48,7 @@ phase named for it.
 """
 from __future__ import annotations
 
+import os
 import re
 import shutil
 import subprocess
@@ -61,10 +69,16 @@ MATCHING = Path("src/repro_torch/core/matching.py")
 LAYERS = Path("src/repro_torch/models/layers.py")
 ATTN_GRAD = Path("src/repro_torch/models/chunked_attention.py")
 SERVE = Path("src/repro_torch/launch/serve.py")
+SHARDING = Path("src/repro_torch/distributed/sharding.py")
 PHASES = ("phase 2", "phase 7", "phase 12", "phase 15", "phase 17",
           "phase 18", "phase 19", "phase 20", "phase 21a", "phase 21c",
           "phase 22a", "phase 22b", "phase B", "phase C", "phase D",
-          "phase E")
+          "phase E", "phase F")
+# the CPU tests that hold the expert-parallel branch and the sharding
+# rules against the reference ("tests"); they need jax, which the card's
+# machine lacks, so faults caught only there are probed where it is
+# installed, with no card (``--cpu``)
+CPU_TESTS = ("tests/test_torch_moe_ep.py", "tests/test_torch_sharding.py")
 # name: (source, text, replacement, phases of which at least one must fail)
 FAULTS = {
     "sound": None,
@@ -226,6 +240,32 @@ FAULTS = {
     "vision prefix left out of the decode index": (
         SERVE, "    pos = prefix_len(cfg) + prompt_len",
         "    pos = prompt_len", ("phase D",)),
+    # each rank's block of the experts one block further on: rank r takes
+    # the ids of rank r + 1's experts (the last rank, and a single one, none)
+    "expert-parallel offset e0 one block off": (
+        SHARDING,
+        'e0 = mesh.get_local_rank("model") * (E // msz) if sharded else 0',
+        'e0 = (mesh.get_local_rank("model") + 1) * (E // msz) if sharded '
+        'else 0',
+        ("phase F", "tests")),
+    # the partial outputs are not summed over "model": each rank keeps the
+    # contribution of its own experts
+    "expert-parallel reduction over model dropped": (
+        SHARDING, 'out = [Partial() if sharded and n == "model" else p\n',
+        'out = [p\n', ("phase F", "tests")),
+    # the per-row capacity from the rank's El experts, not all E: a rank
+    # keeps E / El times the slots, so tokens past an expert's capacity
+    # are not dropped
+    "expert-parallel capacity from the local experts": (
+        LAYERS, "cfg, _capacity(xr.shape[1], cfg),",
+        "cfg, _capacity(xr.shape[1] * cfg.moe.num_experts\n"
+        "                                       // ws[0].shape[0], cfg),",
+        ("phase F", "tests")),
+    # the out-projection's rule keyed to its output dim: wo [H hd, d]
+    # sharded on d, not on the heads
+    "sharding rule of wo on the wrong dim": (
+        SHARDING, """(r"\\['wo'\\]$", (0,)),""",
+        """(r"\\['wo'\\]$", (1,)),""", ("tests",)),
     # attention's backward without the softcap's factor 1 - (s / cap)^2
     "softcap factor dropped from the attention backward": (
         ATTN_GRAD, "ds = ds * (1.0 - torch.square(s / softcap))", "ds = ds",
@@ -312,7 +352,9 @@ for phase, check in (("phase 18", lambda: cs.check_service(
                      ("phase B", lambda: cs.check_xlstm_vs_cpu(dev)),
                      ("phase C", lambda: cs.check_seamless_vs_plain(dev)),
                      ("phase D", lambda: cs.check_llava(dev)),
-                     ("phase E", lambda: cs.check_train_kernels(dev))):
+                     ("phase E", lambda: cs.check_train_kernels(dev)),
+                     ("phase F", lambda: cs.check_expert_parallel(
+                         dev, cs.nvidia_smi()))):
     if phase in phases:
         try:
             print(phase, check())
@@ -324,15 +366,20 @@ print("FAILED:", ", ".join(failed) or "none", flush=True)
 LAST_SPLIT = "one valid slot, in the last split"
 
 
-def probe(name: str, fault, tmp: Path,
-          sound_phases=PHASES) -> tuple[str, str]:
-    """(the checks' ``FAILED:`` line, their whole output) for one tree."""
+def probe(name: str, fault, tmp: Path, sound_phases=PHASES,
+          cpu: bool = False) -> tuple[str, str]:
+    """(the checks' ``FAILED:`` line, their whole output) for one tree:
+    the card's phases (``cpu`` False) or the CPU tests (``cpu``)."""
     copy = tmp / re.sub(r"\W+", "_", name)
     shutil.copytree(ROOT / "src", copy / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
     shutil.copytree(ROOT / "examples", copy / "examples",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    if cpu:
+        shutil.copytree(ROOT / "tests", copy / "tests",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy2(ROOT / "conftest.py", copy / "conftest.py")
     if fault is not None:
         path = copy / fault[0]
         text = path.read_text()
@@ -341,14 +388,26 @@ def probe(name: str, fault, tmp: Path,
                              f"{fault[0]} exactly once")
         path.write_text(text.replace(fault[1], fault[2]))
     phases = sound_phases if fault is None else fault[3]
-    out = subprocess.run([sys.executable, "-c", CHECKS, str(copy),
-                          ",".join(phases)],
-                         capture_output=True, text=True, timeout=1500)
-    text = out.stdout + out.stderr[-2000:]
+    if cpu:
+        out = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-x", "-p",
+             "no:cacheprovider", *CPU_TESTS], cwd=copy, capture_output=True,
+            text=True, timeout=1500,
+            env=dict(os.environ, PYTHONPATH=str(copy / "src"),
+                     JAX_PLATFORMS="cpu"))
+        text = out.stdout[-4000:] + out.stderr[-2000:]
+        verdict = "FAILED: tests" if out.returncode else "FAILED: none"
+    else:
+        card = [p for p in phases if p != "tests"]
+        out = subprocess.run([sys.executable, "-c", CHECKS, str(copy),
+                              ",".join(card)],
+                             capture_output=True, text=True, timeout=1500)
+        text = out.stdout + out.stderr[-2000:]
+        lines = [ln for ln in text.splitlines() if ln.startswith("FAILED:")]
+        verdict = lines[-1] if lines else f"FAILED: exit {out.returncode}"
     for line in text.splitlines():
         print(f"[{name}] {line}", flush=True)
-    lines = [ln for ln in text.splitlines() if ln.startswith("FAILED:")]
-    return (lines[-1] if lines else f"FAILED: exit {out.returncode}"), text
+    return verdict, text
 
 
 def last_split_caught(text: str) -> bool:
@@ -371,28 +430,39 @@ def graph_replay_caught(text: str) -> bool:
 
 
 def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_fault_probe: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 2
+    """``python3 chip_fault_probe.py [--cpu] ["fault name" ...]``: on the
+    card, every fault with a card phase; with ``--cpu`` (no card needed,
+    ``jax`` installed), every fault the CPU tests ("tests") must catch,
+    the tests run on the planted copy."""
+    args = sys.argv[1:]
+    cpu = "--cpu" in args
+    args = [a for a in args if a != "--cpu"]
+    if not cpu:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_fault_probe: torch.cuda.is_available() is false",
+                  file=sys.stderr)
+            return 2
     ok = True
-    faults, sound = FAULTS, PHASES
-    if sys.argv[1:]:
-        unknown = [n for n in sys.argv[1:] if n not in FAULTS]
+    runs = ("tests",) if cpu else tuple(p for p in PHASES if p != "tests")
+    faults = {n: f for n, f in FAULTS.items()
+              if f is None or set(f[3]) & set(runs)}
+    if args:
+        unknown = [n for n in args if n not in FAULTS]
         if unknown:
             raise SystemExit(f"chip_fault_probe: no fault named {unknown}")
-        faults = {"sound": None, **{n: FAULTS[n] for n in sys.argv[1:]}}
-        sound = tuple(p for p in PHASES
-                      if any(p in FAULTS[n][3] for n in sys.argv[1:]))
+        faults = {"sound": None, **{n: faults[n] for n in args
+                                    if n in faults}}
+    sound = tuple(p for p in runs
+                  if not args or any(p in FAULTS[n][3] for n in args))
     with tempfile.TemporaryDirectory() as tmp:
         for name, fault in faults.items():
-            verdict, text = probe(name, fault, Path(tmp), sound)
+            verdict, text = probe(name, fault, Path(tmp), sound, cpu)
             if fault is None:
                 caught = verdict == "FAILED: none"
             else:
                 failed = verdict.removeprefix("FAILED: ").split(", ")
-                caught = any(p in failed for p in fault[3])
+                caught = any(p in failed for p in fault[3] if p in runs)
                 if fault[0] == DECODE:
                     caught &= last_split_caught(text)
                 if fault[0] == RG_WRAPPER and "phase 7" in fault[3]:

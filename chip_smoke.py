@@ -101,10 +101,12 @@ Phases, each fatal on failure:
    K x N = 2,048 x 768 and 768 x 2,048), at the decode's sparsity (32 of
    128 groups with a row, the rest exactly zero, which must come out
    exactly zero) and at edge shapes of the kernel's three routes (G = 1,
-   M = 1, ragged M, N and K, an all-zero group).
+   M = 1, ragged M, N and K, an all-zero group); its float32 route at the
+   path's shapes and ragged ones, within 1e-5 per row.
 13. Time it as phase 3 does, beside its bound, its launch floor, its plain
    version and ``torch.bmm`` on the same tensors; the sparse decode input
-   beside its dense bound and its bound over the groups with a row.
+   beside its dense bound and its bound over the groups with a row; the
+   float32 route beside ``torch.bmm`` in float32.
 14. Serve Qwen3-30B-A3B at full width and depth (48 layers, 128 experts,
    30.5B parameters, random weights from a seed) as phase 9 serves
    RecurrentGemma-9B. The counts must be 144 grouped matmul and 48 flash
@@ -255,6 +257,21 @@ E. Training. (a) Each kernel's gradient through its autograd Function
    resumed from its checkpoint, bit-identical to the uninterrupted run.
    ``python3 chip_smoke.py --phase E`` runs phases 1 and E alone and
    prints no result line.
+F. The expert-parallel MoE on ranks of the card, and the dry run. (a)
+   Qwen3-30B-A3B at full width, 4 of its 48 layers, a prefill of B = 4 x
+   L = 3,072 on one NCCL rank of a (1, 1) mesh, all 128 experts on the
+   rank (each MoE layer's expert weights DTensors, so ``moe_apply`` takes
+   its expert-parallel branch), against the same model's one-device run
+   through the plain versions held to its experts, within phase 15's
+   limits on the last token's logits. (b) Two gloo ranks sharing the card
+   on a (1, 2) mesh, 64 experts a rank, held to (a)'s experts, against (a)
+   on the logits and on every 16th token of each MoE layer's output
+   (``EP_TOL``, ``EP_RMS_TOL``). (c) Each rank's grouped-matmul launches
+   of a prefill, exactly 3 a layer. (d) Prefill seconds at 1 and 2 ranks,
+   the all-reduce bytes a layer, peak memory a rank. (e) The dry run's
+   olmo-1b x train_4k cell on the 16 x 16 fake mesh, in a process of its
+   own on the host (started beside phase E), its roofline terms printed. ``python3 chip_smoke.py --phase F``
+   runs phases 1 and F alone and prints no result line.
 
 Prints one JSON line of per-kernel numbers and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero, with no result, when CUDA is absent
@@ -266,9 +283,11 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -295,6 +314,20 @@ MAIN_CONFIGS = [("default", {}), ("pushback+offload",
 
 def log(*a):
     print(*a, flush=True)
+
+
+PHASE_T: list = []      # (phase, host clock at its start)
+
+
+def phase_start(tag: str) -> None:
+    PHASE_T.append((tag, time.perf_counter()))
+
+
+def phase_seconds() -> dict:
+    """Wall seconds of each phase so far (to the next one's start, the
+    last to now)."""
+    ends = [t for _, t in PHASE_T[1:]] + [time.perf_counter()]
+    return {tag: round(e - t, 1) for (tag, t), e in zip(PHASE_T, ends)}
 
 
 def nvidia_smi() -> str:
@@ -1182,6 +1215,56 @@ def check_gmm(dev):
         log(f"  grouped_matmul {name}: row relerr {e:.2e}, max abs err {ea:.2e}")
         worst, worst_abs = max(worst, e), max(worst_abs, ea)
     return worst, worst_abs
+
+
+GMM_F32_TOL = 1e-5              # float32 route, per output row
+
+
+def check_gmm_f32(dev):
+    """The float32 route against the plain version (a float32 ``torch``
+    product, TF32 off) per output row, at the path's shapes and a ragged
+    one; returns the largest per-row relative and absolute errors."""
+    from repro_torch.kernels import grouped_matmul as gm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [(f"path {n} G={G} M={M} K={K} N={N}", G, M, K, N)
+             for n, G, M, K, N in GMM_PATH]
+    cases += [("ragged M=33 K=100 N=70", 3, 33, 100, 70),
+              ("M=1 K=37 N=1", 2, 1, 37, 1)]
+    worst = worst_abs = 0.0
+    for i, (name, G, M, K, N) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(120 + i)
+        x = torch.randn(G, M, K, generator=g, device=dev)
+        w = torch.randn(G, K, N, generator=g, device=dev) * K ** -0.5
+        got, want = gm.grouped_matmul(x, w), gm.grouped_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise SystemExit(f"grouped_matmul f32 {name}: got {got.dtype}")
+        e, ea = row_relerr(got, want), abserr(got, want)
+        log(f"  grouped_matmul f32 {name}: row relerr {e:.2e}, max abs err "
+            f"{ea:.2e}")
+        worst, worst_abs = max(worst, e), max(worst_abs, ea)
+    return worst, worst_abs
+
+
+def time_gmm_f32(dev) -> dict:
+    """The float32 route at the prefill's gate/up shape, graph-timed beside
+    its plain version and ``torch.bmm`` in float32 (TF32 off), with its
+    bound at the card's float32 rate outside the tensor cores."""
+    from repro_torch.kernels import grouped_matmul as gm
+    _, G, M, K, N = GMM_PATH[0]
+    g = torch.Generator(device=dev).manual_seed(130)
+    x = torch.randn(G, M, K, generator=g, device=dev)
+    w = torch.randn(G, K, N, generator=g, device=dev) * K ** -0.5
+    t = dict(ms=graph_ms(lambda: gm.grouped_matmul(x, w), calls=3, repeats=5),
+             plain_ms=graph_ms(lambda: gm.grouped_matmul_plain(x, w),
+                               calls=3, repeats=5),
+             library_ms=graph_ms(lambda: torch.bmm(x, w), calls=3, repeats=5))
+    t.update(bound(4 * (G * M * K + G * K * N + G * M * N),
+                   2 * G * M * K * N, CORE_OPS_PER_S))
+    log(f"phase 13 grouped matmul f32 [{G}, {M}, {K}] x [{G}, {K}, {N}] "
+        f"(ms per call, median): {json.dumps(t)}")
+    return t
 
 
 def time_gmm(dev):
@@ -3887,6 +3970,279 @@ def check_training(dev, smi) -> dict:
     return out
 
 
+# -- phase F: the expert-parallel MoE on ranks of the card, the dry run ------
+
+EP_LAYERS = 4           # of Qwen3-30B-A3B's 48, as phase 15
+EP_STRIDE = 16          # every 16th token of each MoE layer's output is kept
+# phase F(b) limits: the 2-rank run against the 1-rank run, both through the
+# kernels, the 2-rank run held to the 1-rank run's experts; the same metrics
+# as phase 15 (largest error over the largest value, RMS over RMS), on the
+# last token's logits and on each MoE layer's output. Sound runs read 1.56e-2
+# to 2.71e-2 (max) and 1.34e-2 to 2.02e-2 (RMS); the reduction over "model"
+# dropped reads 1.51 / 1.24, the capacity taken from the rank's 64 experts
+# 1.59 / 0.98 (PERF.md, phase F)
+EP_TOL = 4e-2
+EP_RMS_TOL = 3.5e-2
+
+
+def ep_prefill(dev, mesh, forced, *, B, L, init_seed=1, prompt_seed=7,
+               cfg=None):
+    """A full-width, ``EP_LAYERS``-layer Qwen3-30B-A3B prefill of a B x L
+    prompt. With ``mesh`` (a DeviceMesh with a "model" axis) each MoE
+    layer's expert weights are DTensors holding this rank's block of the
+    experts, so ``moe_apply`` takes its expert-parallel branch. With
+    ``forced`` (the expert ids of another run, one per MoE layer) the
+    router takes those experts, with gates from its own logits, and counts
+    the tokens whose own top-8 set differs. Runs twice: the first run's
+    grouped-matmul launches are counted, the second is timed. Returns the
+    last token's logits, every ``EP_STRIDE``-th token of each MoE layer's
+    output, the expert ids, the flips, the launches, the timed run's
+    seconds and the peak memory (GiB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as ly
+    cfg = cfg or dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                     n_layers=EP_LAYERS)
+    model = build_model(cfg)
+    params = model.init(init_seed, dev)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        n_model = mesh.size(mesh.mesh_dim_names.index("model"))
+        r = mesh.get_local_rank("model")
+        pl = [Shard(0) if n == "model" else Replicate()
+              for n in mesh.mesh_dim_names]
+        for layer in params.layers:
+            for n in ("w_gate", "w_up", "w_down"):
+                full = getattr(layer.moe, n).detach()
+                local = full.chunk(n_model, 0)[r].clone()
+                setattr(layer.moe, n, torch.nn.Parameter(
+                    DTensor.from_local(local, mesh, pl, run_check=False),
+                    requires_grad=False))
+                del full
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rng = np.random.default_rng(prompt_seed)
+    prompt = torch.tensor(rng.integers(2, cfg.vocab, (B, L)), device=dev)
+    route, apply = ly.moe_route, ly.moe_apply
+    picks, outs, flips = [], [], []
+
+    def recorded(p, x, c):
+        gates, idx = route(p, x, c)
+        if forced is not None:
+            own = idx.sort(-1).values
+            idx = forced[len(picks)].to(x.device)
+            flips.append(int((own != idx.sort(-1).values).any(-1).sum()))
+            gates = torch.softmax((x.float() @ p.router).gather(-1, idx),
+                                  dim=-1)
+        picks.append(idx)
+        return gates, idx
+
+    def sampled(p, x, c):
+        y = apply(p, x, c)
+        outs.append(y[:, ::EP_STRIDE].float().cpu())
+        return y
+
+    ly.moe_route, ly.moe_apply = recorded, sampled
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    try:
+        sync()
+        gm.launches = 0
+        logits, _ = model.prefill(params, prompt, model.init_cache(B, L, dev))
+        sync()
+        out = dict(launches=gm.launches, logits=logits[:, -1].float().cpu(),
+                   outs=list(outs), picks=[p.cpu() for p in picks],
+                   flips=list(flips))
+        picks.clear()
+        outs.clear()
+        flips.clear()
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt, model.init_cache(B, L, dev))
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if dev.type == "cuda" else float("nan"))
+    finally:
+        ly.moe_route, ly.moe_apply = route, apply
+    return out
+
+
+def ep_rank(mesh_shape, forced, B, L, cfg=None, device_type="cuda"):
+    """Phase F on one rank of a spawned group: :func:`ep_prefill` on a
+    ``mesh_shape`` mesh; rank 0 returns its result with every rank's
+    launches, seconds and peak memory."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    mesh = make_mesh(mesh_shape, ("data", "model"), device_type)
+    out = ep_prefill(dev, mesh, forced, B=B, L=L, cfg=cfg)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, dict(launches=out["launches"],
+                                       prefill_s=out["prefill_s"],
+                                       peak_gib=out["peak_gib"]))
+    out["ranks"] = every
+    return out
+
+
+def ep_errs(got, want) -> dict:
+    """The largest error over the largest value and the RMS error over the
+    RMS, of the logits and of the MoE outputs (worst layer)."""
+    def two(g, w):
+        g, w = g.float(), w.float()
+        return (float((g - w).abs().max() / w.abs().max()),
+                float((g - w).square().mean().sqrt() / w.square().mean().sqrt()))
+    lg = two(got["logits"], want["logits"])
+    lay = [two(g, w) for g, w in zip(got["outs"], want["outs"])]
+    return dict(logits_max=lg[0], logits_rms=lg[1],
+                moe_max=max(e[0] for e in lay), moe_rms=max(e[1] for e in lay),
+                finite=bool(torch.isfinite(got["logits"]).all()))
+
+
+def ep_drops(picks, n_experts: int, capacity: int) -> list[int]:
+    """Assignments past an expert's capacity in a row, per MoE layer: the
+    ones the dispatch drops."""
+    out = []
+    for idx in picks:
+        B = idx.shape[0]
+        counts = torch.zeros(B, n_experts, dtype=torch.int64)
+        counts.scatter_add_(1, idx.reshape(B, -1),
+                            torch.ones_like(idx.reshape(B, -1)))
+        out.append(int((counts - capacity).clamp(min=0).sum()))
+    return out
+
+
+DRYRUN_CELL = ("olmo-1b", "train_4k")
+
+
+def start_dry_run():
+    """Phase F(e)'s dry-run cell in a process of its own on the host (a
+    fake process group, no card): returns the process, its stderr file
+    and its output directory."""
+    dry = ROOT / "chiprun_out" / "dryrun_torch"
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--out-dir", str(dry)],
+        stdout=subprocess.DEVNULL, stderr=err, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return proc, err, dry
+
+
+def stop_dry_run(run) -> None:
+    proc, _, _ = run
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def finish_dry_run(run) -> dict:
+    """Waits for :func:`start_dry_run`'s process; returns its cell's JSON.
+    Raises ``SystemExit`` if it failed or took over 600 s."""
+    proc, err, dry = run
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        stop_dry_run(run)
+        raise SystemExit("phase F(e): the dry run took over 600 s")
+    if proc.returncode != 0:
+        err.seek(0)
+        raise SystemExit(f"phase F(e): the dry run failed:\n"
+                         f"{err.read()[-3000:]}")
+    return json.loads((dry / f"{DRYRUN_CELL[0]}__{DRYRUN_CELL[1]}__single"
+                       ".json").read_text())
+
+
+def check_expert_parallel(dev, smi, dry_run=None) -> dict:
+    """Phase F: (a) one NCCL rank on a (1, 1) mesh against the one-device
+    run through the plain versions held to its experts (phase 15's
+    limits); (b) two gloo ranks sharing the card on a (1, 2) mesh, 64
+    experts a rank, held to (a)'s experts, against (a); (c) each rank's
+    grouped-matmul launches: 3 a layer; (d) prefill seconds, the all-reduce
+    bytes a layer, peak memory a rank; (e) the dry run's olmo-1b x train_4k
+    cell in a process of its own on the host: ``dry_run`` when the caller
+    started it (:func:`start_dry_run`, beside phase E), else after (d).
+    Not beside (a)-(d): the gloo ranks' all-reduce runs through the host."""
+    from repro_torch.distributed import spawn
+    B, L = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    try:
+        t = [time.perf_counter()]
+        a = spawn.run_ranks(ep_rank, ((1, 1), None, B, L), 1, "nccl",
+                            "cuda", timeout=600)
+        t.append(time.perf_counter())
+        with plain_versions():
+            one = ep_prefill(dev, None, a["picks"], B=B, L=L)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ea = ep_errs(a, one)
+        drops = ep_drops(a["picks"], 128, math.ceil(L * 8 / 128 * 1.25))
+        log(f"phase F(a) qwen3-moe-30b-a3b {EP_LAYERS} layers, B={B} "
+            f"L={L}, one NCCL rank (1, 1) against one device through the "
+            f"plain versions (held to its experts, flips {one['flips']}; "
+            f"assignments past capacity per layer {drops}): "
+            f"{json.dumps(ea)}")
+        if ea["logits_max"] > QWEN_TOL or \
+                ea["logits_rms"] > QWEN_RMS_TOL or not ea["finite"]:
+            raise SystemExit("phase F(a): the expert-parallel run and the "
+                             "one-device run disagree")
+        t.append(time.perf_counter())
+        b = spawn.run_ranks(ep_rank, ((1, 2), a["picks"], B, L), 2, "gloo",
+                            "cuda", timeout=600)
+        t.append(time.perf_counter())
+        eb = ep_errs(b, a)
+        log(f"phase F(b) two gloo ranks sharing the card (1, 2), 64 "
+            f"experts a rank, held to (a)'s experts (flips {b['flips']}), "
+            f"against (a): {json.dumps(eb)} (limits {EP_TOL}, "
+            f"{EP_RMS_TOL})")
+        if max(eb["logits_max"], eb["moe_max"]) > EP_TOL or \
+                max(eb["logits_rms"], eb["moe_rms"]) > EP_RMS_TOL or \
+                not eb["finite"]:
+            raise SystemExit("phase F(b): the 2-rank and 1-rank runs "
+                             "disagree")
+        want = 3 * EP_LAYERS
+        launches = {"1": [r["launches"] for r in a["ranks"]],
+                    "2": [r["launches"] for r in b["ranks"]]}
+        log(f"phase F(c) grouped-matmul launches of a prefill per rank: "
+            f"{launches} (want {want} on every rank)")
+        if any(n != want for v in launches.values() for n in v):
+            raise SystemExit(f"phase F(c): launches {launches}, want "
+                             f"{want}")
+        d_model = 2048
+        reduce_bytes = B * L * d_model * 2
+        timing = dict(prefill_s={k: [r["prefill_s"] for r in x["ranks"]]
+                                 for k, x in (("1", a), ("2", b))},
+                      peak_gib={k: [r["peak_gib"] for r in x["ranks"]]
+                                for k, x in (("1", a), ("2", b))},
+                      allreduce_bytes_per_layer=reduce_bytes,
+                      one_device_plain_prefill_s=one["prefill_s"])
+        log(f"phase F(d) ({smi}): {json.dumps(timing)}")
+    except BaseException:
+        if dry_run is not None:
+            stop_dry_run(dry_run)
+        raise
+    t.append(time.perf_counter())
+    cell = finish_dry_run(dry_run or start_dry_run())
+    log(f"phase F(e) dry run olmo-1b x train_4k on the 16 x 16 fake mesh "
+        f"(torch {torch.__version__}): cost {json.dumps(cell['cost'])}, "
+        f"roofline at the H100's spec-sheet rates "
+        f"{json.dumps(cell['roofline'])}, useful FLOPs ratio "
+        f"{cell['useful_flops_ratio']:.4f}, {cell['run_s']} s")
+    t.append(time.perf_counter())
+    secs = dict(zip(("a, 1 rank", "a, one device", "b", "c-d",
+                     "e" if dry_run is None else "e, past E and d"),
+                    np.diff(t).tolist()))
+    log(f"phase F: " + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()))
+    return dict(a=ea, b=eb, launches=launches, timing=timing,
+                dryrun=dict(roofline=cell["roofline"], cost=cell["cost"]),
+                seconds=secs)
+
+
 def sim_diff(a, b):
     """The first field in which two ``SimResult``s differ (value, shape or
     dtype), telemetry counters included; None when they are equal."""
@@ -3935,6 +4291,7 @@ def main() -> int:
     smi = nvidia_smi()
 
     # -- 1. build ----------------------------------------------------------
+    phase_start("1")
     t0 = time.perf_counter()
     _build.build(KERNELS)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s  "
@@ -3951,8 +4308,14 @@ def main() -> int:
         check_training(dev, smi)
         log(f"chip_smoke --phase E: {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--phase", "F"]:
+        # the expert-parallel phase alone; prints no result line
+        check_expert_parallel(dev, smi)
+        log(f"chip_smoke --phase F: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 2. kernels vs plain versions ----------------------------------------
+    phase_start("2")
     sched = round_robin(N_TORS, 1)
     routing = vlb(sched, kpaths=4)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
@@ -3975,6 +4338,7 @@ def main() -> int:
                          f"admission {adm_mis}")
 
     # -- 3. timing at the main path's shapes -----------------------------------
+    phase_start("3")
     rng = np.random.default_rng(3)
     P = P_MAIN
     t32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
@@ -4097,6 +4461,7 @@ def main() -> int:
             + " ".join(f"{k}={v:.2f}" for k, v in per.items()))
 
     # -- 4. main path at 108 ToRs ----------------------------------------------
+    phase_start("4")
     wl = main_workload()
     P = wl.num_packets
     log(f"phase 4 main path: {N_TORS} ToRs, T={sched.num_slices}, "
@@ -4152,6 +4517,7 @@ def main() -> int:
     main_launches = dict(tfl=tfl.launches, adm=adm.launches)
 
     # -- 5. the CPU's plain versions agree on the first slices -----------------
+    phase_start("5")
     tables = FabricTables.build(sched, vlb(sched, kpaths=4))
     for name, fab in MAIN_CONFIGS:
         cfg = FabricConfig(**fab)
@@ -4165,6 +4531,7 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 6. where the device time goes -----------------------------------------
+    phase_start("6")
     # 16 steady-state slices (24-39, while hosts still inject) of the
     # default configuration: once timed on the host clock, once under the
     # profiler for device time by kernel
@@ -4211,6 +4578,7 @@ def main() -> int:
             f"{e.key[:100]}")
 
     # -- 7. LM kernels vs plain versions ------------------------------------------
+    phase_start("7")
     log("phase 7 LM kernels vs plain versions (relative error, bf16 inputs)")
     (flash_err, flash_abs), (decode_err, decode_abs), (rg_err, rg_abs) = (
         check_flash(dev), check_decode(dev), check_rg_lru(dev))
@@ -4219,9 +4587,11 @@ def main() -> int:
                          f"{decode_err:.2e}, rg_lru {rg_err:.2e}")
 
     # -- 8. LM kernel timing ------------------------------------------------------
+    phase_start("8")
     lm_t, lm_bounds = time_lm_kernels(dev)
 
     # -- 9. serve RecurrentGemma-9B at full width and depth ------------------------
+    phase_start("9")
     res, serve_counts, n_prefill, n_decode, peak, wall, _ = run_serve(
         dev, "recurrentgemma-9b")
     log(f"phase 9 serve recurrentgemma-9b full: {json.dumps(res)}; "
@@ -4237,9 +4607,11 @@ def main() -> int:
                          f"{want_counts}), result {res}")
 
     # -- 10. whole model, kernels vs plain versions --------------------------------
+    phase_start("10")
     check_model_vs_plain(dev)
 
     # -- 11. where the serve path's time goes ----------------------------------
+    phase_start("11")
     rg_prof = profile_serve(dev, "recurrentgemma-9b", 11)
     rg_group_ms = rg_prof["prefill"]["groups"].get("rg_lru", 0.0)
     log(f"phase 11 rg_lru group: {rg_group_ms:.3f} ms of device time a "
@@ -4247,15 +4619,22 @@ def main() -> int:
         " of the prefill")
 
     # -- 12. grouped matmul vs plain version ----------------------------------
+    phase_start("12")
     log("phase 12 grouped matmul vs plain version (bf16, per output row)")
     gmm_err, gmm_abs = check_gmm(dev)
     if gmm_err > GMM_TOL:
         raise SystemExit(f"grouped_matmul disagrees: {gmm_err:.2e}")
+    gmm32_err, gmm32_abs = check_gmm_f32(dev)
+    if gmm32_err > GMM_F32_TOL:
+        raise SystemExit(f"grouped_matmul f32 disagrees: {gmm32_err:.2e}")
 
     # -- 13. grouped matmul timing --------------------------------------------
+    phase_start("13")
     gmm_t, gmm_bounds = time_gmm(dev)
+    gmm_f32 = time_gmm_f32(dev)
 
     # -- 14. serve Qwen3-30B-A3B at full width and depth ----------------------
+    phase_start("14")
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -4276,16 +4655,19 @@ def main() -> int:
                          f"{want_counts}), result {qres}")
 
     # -- 15. 4-layer Qwen3-30B-A3B, kernels vs plain versions -----------------
+    phase_start("15")
     gc.collect()
     torch.cuda.empty_cache()
     check_qwen_vs_plain(dev)
 
     # -- 16. where Qwen3-30B-A3B's serve time goes ----------------------------
+    phase_start("16")
     gc.collect()
     torch.cuda.empty_cache()
     profile_serve(dev, "qwen3-moe-30b-a3b", 16)
 
     # -- 17. the main path with failures, control and telemetry ---------------
+    phase_start("17")
     gc.collect()
     torch.cuda.empty_cache()
     masked = check_masked_path(dev)
@@ -4301,6 +4683,7 @@ def main() -> int:
         f"field and counter")
 
     # -- 18. the clocked service ----------------------------------------------
+    phase_start("18")
     gc.collect()
     torch.cuda.empty_cache()
     service = check_service(dev, masked)
@@ -4322,6 +4705,7 @@ def main() -> int:
         f"one-shot run, 48 slices of the service equal on CUDA and CPU")
 
     # -- 19. phased table swaps -------------------------------------------------
+    phase_start("19")
     gc.collect()
     torch.cuda.empty_cache()
     phased = check_phased(dev)
@@ -4329,6 +4713,7 @@ def main() -> int:
         f"slices: {json.dumps(phased)}")
 
     # -- 20. the traffic-aware reconfigure loop ---------------------------------
+    phase_start("20")
     gc.collect()
     torch.cuda.empty_cache()
     reconf = check_reconfigure(dev)
@@ -4356,6 +4741,7 @@ def main() -> int:
         f"{reconf['b_2pc_degrade']['degraded_epochs']} (2PC)")
 
     # -- 21. the seven architectures and the scenario sweep ---------------------
+    phase_start("21")
     gc.collect()
     torch.cuda.empty_cache()
     t21 = time.perf_counter()
@@ -4378,6 +4764,7 @@ def main() -> int:
         "every member equal to its solo run")
 
     # -- 22. reconfigure_fleet and simulate_sharded ----------------------------
+    phase_start("22")
     gc.collect()
     torch.cuda.empty_cache()
     t22 = time.perf_counter()
@@ -4414,6 +4801,7 @@ def main() -> int:
         f"{time.perf_counter() - t22b:.1f} s; {smi})")
 
     # -- A-D. EQO and the last model families ---------------------------------
+    phase_start("A-D")
     gc.collect()
     torch.cuda.empty_cache()
     tA = time.perf_counter()
@@ -4428,9 +4816,23 @@ def main() -> int:
         f"{tD - tC:.1f} s, D {time.perf_counter() - tD:.1f} s")
 
     # -- E. training ----------------------------------------------------------
+    phase_start("E")
     gc.collect()
     torch.cuda.empty_cache()
-    training = check_training(dev, smi)
+    # F(e)'s dry run is host work on a fake process group: it runs
+    # beside the training phase, whose steps keep the card busy
+    dry_run = start_dry_run()
+    try:
+        training = check_training(dev, smi)
+    except BaseException:
+        stop_dry_run(dry_run)
+        raise
+
+    # -- F. the expert-parallel MoE on ranks of the card, the dry run ---------
+    phase_start("F")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = check_expert_parallel(dev, smi, dry_run)
 
     # -- results ----------------------------------------------------------------
     K = stk_n.shape[-1]
@@ -4588,7 +4990,9 @@ def main() -> int:
         shapes={key: dict(ms=gmm_t[f"{key}_ms"],
                           plain_ms=gmm_t[f"{key}_plain_ms"],
                           library_ms=gmm_t[f"{key}_bmm_ms"], **gmm_bounds[key])
-                for key in gmm_bounds}))
+                for key in gmm_bounds},
+        f32=dict(gmm_f32, max_row_relerr=gmm32_err, max_abs_err=gmm32_abs),
+        expert_parallel_launches=ep["launches"]))
     # the training path: launches of the OLMo-1B run (E(c)) and of one
     # micro-batch of the reduced models (E(b)), forward and backward; the
     # gradient's times beside the plain version's autograd (E(a))
@@ -4638,7 +5042,7 @@ def main() -> int:
                                    library_ms=lm_t["decode_qwen_sdpa_ms"],
                                    **lm_bounds["decode_qwen"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
-        "build included")
+        f"build included; seconds by phase {json.dumps(phase_seconds())}")
     log(smi)                                # card name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

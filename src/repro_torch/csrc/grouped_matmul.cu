@@ -43,6 +43,13 @@
 // 16-byte loads, 4 to 8 rows in flight per thread, accumulate M x 8 float32
 // values a thread, and are summed through shared memory.
 //
+// gmm_kernel_f32 (float32 inputs, grouped_matmul_f32_launch): plain FMA
+// tiles, no tensor cores and no TF32, so the products keep float32's
+// precision, as the Pallas kernel's float32 path accumulates in float32. A
+// block of 256 threads owns a (group, 64-row, 64-column) tile; K advances
+// 16 deep through two shared-memory tiles (x transposed), each thread
+// accumulating 4 x 4 outputs strided by 16 rows and columns.
+//
 // gmm_kernel_mma (K or N not a multiple of 8, or a base pointer not 16-byte
 // aligned, where a 16-byte or TMA copy could straddle an edge): one block
 // of four warps per (group, 64-row, 128-column) tile, K in 32-deep steps
@@ -540,6 +547,67 @@ __global__ void __launch_bounds__(kSThreads)
   }
 }
 
+// -- gmm_kernel_f32: the float32 route ----------------------------------------
+
+constexpr int kFT = 64;        // rows and columns of the output tile
+constexpr int kFK = 16;        // depth of one K step
+constexpr int kFThreads = 256; // 16 x 16, each 4 x 4 outputs
+
+__global__ void __launch_bounds__(kFThreads)
+gmm_kernel_f32(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ out, int M, int K, int N) {
+  __shared__ float as[kFK][kFT + 4];   // x tile, transposed: [k][row]
+  __shared__ float bs[kFK][kFT + 4];   // w tile: [k][column]
+  const int g = blockIdx.z;
+  const int m0 = blockIdx.y * kFT, n0 = blockIdx.x * kFT;
+  const float* xg = x + static_cast<int64_t>(g) * M * K;
+  const float* wg = w + static_cast<int64_t>(g) * K * N;
+  float* og = out + static_cast<int64_t>(g) * M * N;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kFK) {
+    for (int i = tid; i < kFT * kFK; i += kFThreads) {
+      const int r = i / kFK, c = i % kFK;
+      const int gm = m0 + r, gk = k0 + c;
+      as[c][r] = (gm < M && gk < K) ? xg[static_cast<int64_t>(gm) * K + gk]
+                                    : 0.0f;
+    }
+    for (int i = tid; i < kFK * kFT; i += kFThreads) {
+      const int r = i / kFT, c = i % kFT;
+      const int gk = k0 + r, gn = n0 + c;
+      bs[r][c] = (gk < K && gn < N) ? wg[static_cast<int64_t>(gk) * N + gn]
+                                    : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gm < M && gn < N) og[static_cast<int64_t>(gm) * N + gn] = acc[i][j];
+    }
+  }
+}
+
 // -- host ---------------------------------------------------------------------
 
 template <int MT>
@@ -611,5 +679,22 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out,
     const int grid = static_cast<int>(tiles < sms ? tiles : sms);
     gmm_kernel_wgmma<<<grid, kWThreads, kWSmem, st>>>(tx, tw, to, G, M, K, N);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 route: x [G, M, K], w [G, K, N], out [G, M, N], all float32
+// and contiguous. Same contract as grouped_matmul_launch.
+extern "C" int grouped_matmul_f32_launch(const void* x, const void* w,
+                                         void* out, int G, int M, int K,
+                                         int N, void* stream) {
+  if (G <= 0 || M <= 0 || N <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 0)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, 4 * static_cast<size_t>(G) * M * N, st));
+  const dim3 grid((N + kFT - 1) / kFT, (M + kFT - 1) / kFT, G);
+  gmm_kernel_f32<<<grid, kFThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }

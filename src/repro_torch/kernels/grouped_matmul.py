@@ -10,10 +10,13 @@ model computes the same products as einsums over the expert axis
 the port's MoE layer calls :func:`grouped_matmul` there, three times per
 layer.
 
-The CUDA kernel takes bfloat16 only; the plain version takes float32 too.
-Unlike the Pallas kernel, neither needs M, N or K to be a multiple of a
-tile: the MoE path gives M = 960 at prefill and M = 1 at decode. The kernel
-picks one of three routes from the shapes (``csrc/grouped_matmul.cu``): TMA
+The CUDA kernel takes bfloat16 or float32 (x and w of one dtype), as the
+Pallas kernel takes any dtype and accumulates in float32; the plain version
+takes any. Unlike the Pallas kernel, neither needs M, N or K to be a
+multiple of a tile: the MoE path gives M = 960 at prefill and M = 1 at
+decode. Float32 inputs take a route of their own, plain FMA tiles with no
+TF32 (``grouped_matmul_f32_launch``). For bfloat16 the kernel picks one of
+three routes from the shapes (``csrc/grouped_matmul.cu``): TMA
 and ``wgmma`` for large M, a streaming route for M <= 16 that reads no
 weights of a group whose rows are all zero (the dispatch zero-fills the
 capacity rows of experts without a token), and an element-by-element route
@@ -43,7 +46,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, out, G, M, K, N, stream
     "grouped_matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+    "grouped_matmul_f32_launch": ([_P, _P, _P, _I, _I, _I, _I, _P],
+                                  ctypes.c_int),
 }
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def grouped_matmul_plain(x, w):
@@ -64,10 +70,11 @@ def _check(x, w):
             x.shape[2] != w.shape[1]:
         raise ValueError("grouped_matmul: expects x [G, M, K] and w [G, K, N], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError("grouped_matmul: the kernel takes x and w both "
+                         f"bfloat16 or both float32, got {x.dtype} and "
+                         f"{w.dtype}")
     for t in (x, w):
-        if t.dtype != torch.bfloat16:
-            raise ValueError("grouped_matmul: the kernel takes bfloat16, got "
-                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError("grouped_matmul: the kernel takes contiguous "
                              "tensors")
@@ -95,7 +102,9 @@ def grouped_matmul(x, w):
     if out.numel() == 0:
         return out
     lib = _build.load("grouped_matmul", _SIGNATURES)
-    _build.launch(lib.grouped_matmul_launch, "grouped_matmul", x.data_ptr(),
+    fn = lib.grouped_matmul_f32_launch if x.dtype == torch.float32 else \
+        lib.grouped_matmul_launch
+    _build.launch(fn, "grouped_matmul", x.data_ptr(),
                   w.data_ptr(), out.data_ptr(), G, M, K, N,
                   torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1

@@ -1,13 +1,20 @@
 """Step builders of the port: the train step with micro-batch accumulation,
-the prefill step and the serve step (the step half of
-``repro.launch.steps``; its ``input_specs`` / ``state_specs`` feed the
-reference's dry run, which the port does not have).
+the prefill step and the serve step; and the stand-ins of every (arch x
+shape) cell that the dry run runs against (``input_specs``,
+``cache_specs``, ``state_specs``): the counterpart of
+``repro.launch.steps``.
 
 The port's parameters are a ``Stack`` module, trainable once
 ``Model.trainable`` has run; the train step computes the gradients with
 ``torch.autograd.grad`` and writes the AdamW update into the parameters in
 place. Its optimizer state is keyed by the port's parameter names
 (``Stack.named_parameters()``).
+
+The stand-ins are fake tensors (``torch._subclasses.FakeTensorMode``):
+shapes and dtypes with no storage, the counterpart of JAX's
+``ShapeDtypeStruct`` and ``eval_shape``. Each function takes the mode to
+build them under (a new one by default); a fake tensor can only be used
+under the mode that made it.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ from ..models.config import ArchConfig, ShapeConfig
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
-           "shape_supported", "loss_and_grads", "apply_update", "opt_init"]
+           "shape_supported", "loss_and_grads", "apply_update", "opt_init",
+           "input_specs", "cache_specs", "state_specs", "fake_mode"]
 
 
 def shape_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
@@ -27,6 +35,71 @@ def shape_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, "full-attention arch: 524k-token decode is quadratic"
     return True, ""
+
+
+def fake_mode():
+    """A new ``FakeTensorMode`` that also takes real tensors made outside
+    it (such as a constant a layer builds) as fakes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def _frontend_spec(cfg: ArchConfig, batch: int):
+    if cfg.frontend is None:
+        return None
+    from ..models import stacks
+    return torch.empty((batch, cfg.frontend_tokens, stacks.frontend_dim(cfg)),
+                       dtype=torch.bfloat16)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, mode=None) -> dict:
+    """Model inputs of this cell as fake CPU tensors (no allocation).
+
+    train: {tokens, labels, frontend_embeds?}; prefill: {tokens, cache,
+    frontend_embeds?}; decode: {token, cache, index}: one new token against
+    a cache of ``shape.seq_len`` (decode cells run the serve step). A
+    vision model's token count leaves room for its patches, as the
+    reference's does."""
+    mode = mode or fake_mode()
+    B, L = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    with mode:
+        if shape.kind in ("train", "prefill"):
+            Lt = L - (cfg.frontend_tokens
+                      if (cfg.frontend and not cfg.enc_dec) else 0)
+            out = {"tokens": torch.empty((B, Lt), dtype=i32)}
+            if shape.kind == "train":
+                out["labels"] = torch.empty((B, Lt), dtype=i32)
+            else:
+                out["cache"] = cache_specs(cfg, B, L, mode)
+            fe = _frontend_spec(cfg, B)
+            if fe is not None:
+                out["frontend_embeds"] = fe
+            return out
+        if shape.kind == "decode":
+            return {"token": torch.empty((B, 1), dtype=i32),
+                    "cache": cache_specs(cfg, B, L, mode),
+                    "index": torch.empty((), dtype=i32)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int, mode=None):
+    """The port's cache (``stacks.init_cache``) as fake tensors."""
+    from ..models import stacks
+    with mode or fake_mode():
+        return stacks.init_cache(cfg, batch, seq_len, torch.device("cpu"),
+                                 enc_len=cfg.frontend_tokens or None)
+
+
+def state_specs(cfg: ArchConfig, mode=None):
+    """(parameters, AdamW state) as fake tensors: a ``Stack`` module, and
+    ``opt_init``'s ``mu`` / ``nu`` (float32, keyed by parameter name) and
+    ``step``. No parameter is drawn and nothing is allocated."""
+    from ..models import stacks
+    build_model(cfg)
+    with mode or fake_mode():
+        params = stacks.Stack(cfg, torch.device("cpu"))
+        return params, opt_init(params)
 
 
 def opt_init(params) -> dict:

@@ -2,11 +2,12 @@
 
 Every assigned architecture is an ``ArchConfig``; the layer sequence is a
 repeating ``pattern`` of layer kinds (+ optional ``tail``). The port's
-stack runs it as a Python loop over layers; the knobs of the reference's
-compiled TPU stack (``remat``, ``attn_impl``, ``attn_bq``/``attn_bk``,
-``fsdp``, ``train_microbatches``) are kept so that a configuration reads
-the same in both packages, and the port ignores them. ``moe_chunk``
-changes the MoE dispatch's capacity, so the port honours it.
+stack runs it as a Python loop over layers. Of the knobs of the
+reference's compiled TPU stack the port honours ``remat`` (a checkpoint
+per layer), ``attn_bq``/``attn_bk`` (the attention backward's blocks),
+``train_microbatches``, ``fsdp`` (the sharding rules) and ``moe_chunk``
+(the MoE dispatch's capacity); ``attn_impl`` is kept so that a
+configuration reads the same in both packages, and changes nothing.
 
 Layer kinds:
   dense   — GQA attention + (Sw/Ge)GLU MLP

@@ -29,8 +29,8 @@ Where the port differs from the reference:
   it is given untouched.
 * the decode softmax weights stay in float32 for the product with V; the
   reference's einsum path rounds them to bfloat16 first.
-* the MoE layer has no expert-parallel (``shard_map``) branch: the port
-  runs on one card.
+* the MoE's expert-parallel branch takes its mesh from its inputs
+  (DTensors), where the reference reads the abstract mesh of its trace.
 * cross-attention splits into :func:`cross_kv` (K and V of the encoder
   memory, no RoPE) and :func:`cross_attend` (the queries against them), so
   the stack projects the memory once at prefill and keeps its K and V in
@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
+import types
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +53,7 @@ from torch import nn
 from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
 from ..kernels import grouped_matmul as _gmm
+from ..distributed import sharding as _shd
 from ..kernels import rg_lru as _rg_lru
 from .chunked_attention import FlashAttentionFn
 from .config import ArchConfig
@@ -70,23 +73,39 @@ def _grad(*xs) -> bool:
 
 
 def _attend(q, k, v, cfg: ArchConfig, *, n_q_heads: int, n_kv_heads: int,
-            causal: bool, softcap: float, scale: float, window: int = 0):
+            causal: bool, softcap: float, scale: float, window: int = 0,
+            q_offset: int = 0):
     """Flash attention of the layer's q [B*Hq, L, hd] against k, v [B*Hkv,
-    S, hd]; through :class:`FlashAttentionFn` when a gradient is wanted,
-    with the reference's backward blocks ``cfg.attn_bq`` / ``attn_bk``."""
+    S, hd] (the queries at positions ``q_offset ..``); through
+    :class:`FlashAttentionFn` when a gradient is wanted, with the
+    reference's backward blocks ``cfg.attn_bq`` / ``attn_bk``."""
     if _grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, n_q_heads, n_kv_heads, causal,
-                                      window, softcap, scale, 0, cfg.attn_bq,
-                                      cfg.attn_bk)
+                                      window, softcap, scale, q_offset,
+                                      cfg.attn_bq, cfg.attn_bk)
     return _flash.flash_attention(q, k, v, n_q_heads=n_q_heads,
                                   n_kv_heads=n_kv_heads, causal=causal,
-                                  window=window, softcap=softcap, scale=scale)
+                                  window=window, softcap=softcap, scale=scale,
+                                  q_offset=q_offset)
 
 
 def _gmm_apply(x, w):
     if _grad(x, w):
         return _gmm.GroupedMatmulFn.apply(x, w)
     return _gmm.grouped_matmul(x, w)
+
+
+def residual(x, y):
+    """``x + y``, the residual stream's add; under a mesh both laid out as
+    the stream first (``distributed.sharding.stream``)."""
+    return _shd.stream(x) + _shd.stream(y)
+
+
+def residual_add(x):
+    """The residual add of a stack call whose hidden state is ``x``:
+    :func:`residual` under a mesh (``x`` a DTensor), else the plain add, so
+    that a stack tests for a mesh once a call, not once a layer."""
+    return residual if _shd.mesh_of(x) is not None else operator.add
 
 
 def _normal_(p: nn.Parameter, gen: torch.Generator, scale: float) -> None:
@@ -233,7 +252,7 @@ def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
         cache.k[:, idx] = k[:, 0]
         cache.v[:, idx] = v[:, 0]
         cache.pos[:, idx] = positions[:, 0].to(torch.int32)
-        out = _decode.decode_attention(
+        out = _decode_heads(
             q[:, 0], cache.k, cache.v, cache.pos, int(write_index),
             n_q_heads=hq, n_kv_heads=hkv, window=window,
             softcap=cfg.attn_softcap, scale=scale)
@@ -259,14 +278,60 @@ def attn_apply(p: Attention, x, cfg: ArchConfig, *, positions,
             new_cache.k[:, :L] = k
             new_cache.v[:, :L] = v
             new_cache.pos[:, :L] = pos32
-    qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
-    kf = k.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
-    vf = v.permute(0, 2, 1, 3).reshape(B * hkv, L, hd)
-    of = _attend(qf, kf, vf, cfg, n_q_heads=hq, n_kv_heads=hkv,
-                 causal=causal, window=window, softcap=cfg.attn_softcap,
-                 scale=scale)
-    out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
+    out = _attend_heads(q, k, v, cfg, causal=causal, window=window,
+                        softcap=cfg.attn_softcap, scale=scale)
     return out @ p.wo, new_cache
+
+
+def _attend_heads(q, k, v, cfg: ArchConfig, **kw):
+    """Attention of q [B, L, Hq, hd] over k, v [B, S, Hkv, hd] through
+    :func:`_attend`; returns [B, L, Hq * hd]. On DTensors (a model under a
+    mesh) each rank attends with its own shard, split by
+    ``distributed.sharding.attention_region``."""
+    B, L, hq, hd = q.shape
+    mesh = _shd.mesh_of(q, k, v)
+    if mesh is not None:
+        region, heads, offset = _shd.attention_region(mesh, B, L, hq,
+                                                      k.shape[2])
+
+        def local(q, k, v):
+            if heads is not None:
+                k, v = k[:, :, heads], v[:, :, heads]
+            return _attend_heads(q, k, v, cfg, **kw, q_offset=offset)
+        return _shd.on_ranks(mesh, region, local, q, k, v,
+                             shape=torch.Size((B, L, hq * hd)),
+                             stride=(L * hq * hd, hq * hd, 1))
+    S, hkv = k.shape[1], k.shape[2]
+    qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
+    kf = k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
+    of = _attend(qf, kf, vf, cfg, n_q_heads=hq, n_kv_heads=hkv, **kw)
+    return of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
+
+
+def _decode_heads(q, k_cache, v_cache, pos, index: int, *, n_q_heads: int,
+                  n_kv_heads: int, **kw):
+    """``decode_attention`` of q [B, Hq, hd] over the cache; on DTensors
+    each rank attends with its rows and query heads against the KV heads
+    they read, split by ``distributed.sharding.attention_region``."""
+    mesh = _shd.mesh_of(q, k_cache)
+    if mesh is None:
+        return _decode.decode_attention(q, k_cache, v_cache, pos, index,
+                                        n_q_heads=n_q_heads,
+                                        n_kv_heads=n_kv_heads, **kw)
+    B, hq, hd = q.shape
+    region, heads, _ = _shd.attention_region(mesh, B, 1, hq, n_kv_heads,
+                                             decode=True)
+
+    def local(q, k, v, pos):
+        if heads is not None:
+            k, v = k[:, :, heads], v[:, :, heads]
+        return _decode.decode_attention(q, k, v, pos, index,
+                                        n_q_heads=q.shape[1],
+                                        n_kv_heads=k.shape[2], **kw)
+    return _shd.on_ranks(mesh, region, local, q, k_cache, v_cache, pos,
+                         shape=torch.Size((B, hq, hd)),
+                         stride=(hq * hd, hd, 1))
 
 
 # a query index at or past every position: decode_attention then sees every
@@ -302,15 +367,11 @@ def cross_attend(p: Attention, x, cfg: ArchConfig, kv: AttnCache):
     kw = dict(n_q_heads=hq, n_kv_heads=hkv, softcap=cfg.attn_softcap,
               scale=scale)
     if L == 1:
-        out = _decode.decode_attention(q[:, 0], kv.k, kv.v, kv.pos,
-                                       ALL_POSITIONS, **kw)
+        out = _decode_heads(q[:, 0], kv.k, kv.v, kv.pos, ALL_POSITIONS,
+                            **kw)
         return out.reshape(B, 1, hq * hd) @ p.wo
-    S = kv.k.shape[1]
-    qf = q.permute(0, 2, 1, 3).reshape(B * hq, L, hd)
-    kf = kv.k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
-    vf = kv.v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
-    of = _attend(qf, kf, vf, cfg, causal=False, **kw)
-    out = of.reshape(B, hq, L, hd).permute(0, 2, 1, 3).reshape(B, L, hq * hd)
+    out = _attend_heads(q, kv.k, kv.v, cfg, causal=False,
+                        softcap=cfg.attn_softcap, scale=scale)
     return out @ p.wo
 
 
@@ -347,6 +408,13 @@ def _act(cfg: ArchConfig, x):
 
 
 def mlp_apply(p: MLP, x, cfg: ArchConfig):
+    mesh = _shd.mesh_of(x, p.w_gate)
+    if mesh is not None:
+        # each rank its rows and its slice of the hidden width
+        return _shd.on_ranks(
+            mesh, _shd.mlp_region(mesh, x.shape[0], p.w_gate.shape[1]),
+            lambda x, wg, wu, wd: (_act(cfg, x @ wg) * (x @ wu)) @ wd,
+            x, p.w_gate, p.w_up, p.w_down, shape=x.shape, stride=x.stride())
     return (_act(cfg, x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
 
 
@@ -381,69 +449,110 @@ class MoE(nn.Module):
 def moe_route(p: MoE, x, cfg: ArchConfig):
     """The router: float32 logits, top-k experts in descending order of
     logit, and a softmax over the k values. x: [..., d] -> (gates [..., k]
-    float32, expert ids [..., k] int64)."""
+    float32, expert ids [..., k] int64). ``p`` needs only ``router``."""
     vals, idx = torch.topk(x.float() @ p.router, cfg.moe.top_k, dim=-1)
     return torch.softmax(vals, dim=-1), idx
 
 
 def moe_apply(p: MoE, x, cfg: ArchConfig):
-    """Token-sorted capacity dispatch, as ``repro.models.layers.moe_apply``
-    without its expert-parallel branch. x: [B, L, d] -> [B, L, d].
+    """Token-sorted capacity dispatch, as ``repro.models.layers.moe_apply``.
+    x: [B, L, d] -> [B, L, d].
 
-    With L > 1 each row of the batch (or each ``moe_chunk`` of a row)
-    dispatches on its own, with a capacity of ``ceil(L k / E * factor)``
-    per expert; at decode (L == 1) the batch's tokens dispatch together.
+    On one device, with L > 1 each row of the batch (or each ``moe_chunk``
+    of a row) dispatches on its own, with a capacity of ``ceil(L k / E *
+    factor)`` per expert; at decode (L == 1) the batch's tokens dispatch
+    together.
+
+    Under a mesh, which comes with the inputs (``x`` or the expert weights
+    are DTensors on a ``DeviceMesh``, as the reference's abstract mesh
+    comes with its trace), the layer takes the reference's expert-parallel
+    branch when the mesh has a "model" axis, E divides by its size, B by
+    the data axes' and L > 1 (:func:`_moe_on_mesh`); otherwise (decode)
+    the batch's tokens are gathered on every rank and dispatch together,
+    each "model" rank computing its own experts.
     """
     B, L, d = x.shape
-    if L == 1:
+    mesh = _shd.mesh_of(x, p.w_gate)
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        out = _moe_on_mesh(p, x, cfg, mesh)
+    elif mesh is not None:
+        raise ValueError("moe_apply: a mesh without a 'model' axis")
+    elif L == 1:
         out = _moe_dispatch(p, x.reshape(1, B, d), cfg)
     else:
-        xr = x
-        if cfg.moe_chunk and L > cfg.moe_chunk and L % cfg.moe_chunk == 0:
-            xr = x.reshape(B * (L // cfg.moe_chunk), cfg.moe_chunk, d)
-        out = _moe_dispatch(p, xr, cfg)
+        out = _moe_dispatch(p, _moe_rows(x, cfg), cfg)
     out = out.reshape(B, L, d)
     if p.shared is not None:
         out = out + mlp_apply(p.shared, x, cfg)
     return out
 
 
-def _moe_dispatch(p: MoE, x, cfg: ArchConfig):
-    """Sorted capacity dispatch of each of the R rows of x: [R, T, d].
+def _moe_rows(x, cfg: ArchConfig):
+    """The dispatch's rows of x [B, L, d]: each row, or each ``moe_chunk``
+    of it."""
+    B, L, d = x.shape
+    if cfg.moe_chunk and L > cfg.moe_chunk and L % cfg.moe_chunk == 0:
+        return x.reshape(B * (L // cfg.moe_chunk), cfg.moe_chunk, d)
+    return x
 
-    The reference's ``_moe_dispatch_batched`` (rows of the batch) and its
-    ``_moe_dispatch`` (the decode batch as one row) in one: assignments are
-    sorted stably by expert, the first C of each expert in a row are kept,
-    the rest dropped. Kept tokens are scattered into an [E, R, C, d] buffer
-    (one trash row takes the dropped ones), so the expert GLU is three
-    grouped matmuls of G = E groups and M = R * C rows; rows of the batch
-    never mix, as in the reference's [R, E, C, d] einsums. The combine adds
-    each slot's output, times its gate in the working dtype, into its
-    token's row in slot order, which for a token is ascending expert order
-    as in the reference. Everything stays on the device.
+
+def _capacity(T: int, cfg: ArchConfig) -> int:
+    m = cfg.moe
+    return int(max(1, math.ceil(T * m.top_k / m.num_experts
+                                * m.capacity_factor)))
+
+
+def _moe_dispatch(p: MoE, x, cfg: ArchConfig):
+    """Sorted capacity dispatch of each of the R rows of x: [R, T, d], over
+    every expert (one device)."""
+    gates, idx = moe_route(p, x, cfg)                     # [R, T, K]
+    return _dispatch(x, gates, idx, p.w_gate, p.w_up, p.w_down, cfg,
+                     _capacity(x.shape[1], cfg), e0=0)
+
+
+def _dispatch(x, gates, idx, w_gate, w_up, w_down, cfg: ArchConfig, C: int,
+              e0: int):
+    """The dispatch of the R rows of x [R, T, d] to the experts ``e0 ..
+    e0 + El - 1`` (``El = w_gate.shape[0]``), each with C slots a row.
+
+    The reference's ``_moe_dispatch_batched`` (rows of the batch), its
+    ``_moe_dispatch`` (the decode batch as one row) and its expert-parallel
+    ``local_moe`` (a rank's experts) in one: assignments are sorted stably
+    by expert (those of other experts to a trash expert El past the local
+    ones), the first C of each expert in a row are kept, the rest dropped.
+    Kept tokens are scattered into an [El, R, C, d] buffer (one trash row
+    takes the dropped ones), so the expert GLU is three grouped matmuls of
+    G = El groups and M = R * C rows; rows of the batch never mix, as in
+    the reference's [R, E, C, d] einsums. The combine adds each slot's
+    output, times its gate in the working dtype, into its token's row in
+    slot order, which for a token is ascending expert order as in the
+    reference. Everything stays on the device.
     """
     R, T, d = x.shape
-    m = cfg.moe
-    E, K = m.num_experts, m.top_k
-    C = int(max(1, math.ceil(T * K / E * m.capacity_factor)))
-    gates, idx = moe_route(p, x, cfg)                     # [R, T, K]
+    K = cfg.moe.top_k
+    El = w_gate.shape[0]
     ids = idx.reshape(R, T * K)
+    trash = e0 or El != cfg.moe.num_experts      # some experts elsewhere
+    if trash:
+        ids = torch.where((ids >= e0) & (ids < e0 + El), ids - e0, El)
     order = torch.argsort(ids, dim=1, stable=True)
     ids_s = torch.gather(ids, 1, order)
     gate_s = torch.gather(gates.reshape(R, T * K), 1, order)
     pos = (torch.arange(T * K, device=x.device)
            - torch.searchsorted(ids_s, ids_s))            # place in expert
     keep = pos < C
+    if trash:
+        keep &= ids_s < El
     row = torch.arange(R, device=x.device)[:, None]
-    n_slots = E * R * C                                   # + 1 trash slot
+    n_slots = El * R * C                                  # + 1 trash slot
     slot = torch.where(keep, (ids_s * R + row) * C + pos, n_slots).reshape(-1)
     src = (row * T + order // K).reshape(-1)              # token of x's rows
 
     xe = x.new_zeros(n_slots + 1, d)
     xe[slot] = x.reshape(R * T, d)[src]
-    xe = xe[:-1].view(E, R * C, d)
-    h = _act(cfg, _gmm_apply(xe, p.w_gate)) * _gmm_apply(xe, p.w_up)
-    ye = _gmm_apply(h, p.w_down).view(n_slots, d)
+    xe = xe[:-1].view(El, R * C, d)
+    h = _act(cfg, _gmm_apply(xe, w_gate)) * _gmm_apply(xe, w_up)
+    ye = _gmm_apply(h, w_down).view(n_slots, d)
 
     # slot -> token row (R * T, the trash row, for empty slots) and gate
     tok = torch.full((n_slots + 1,), R * T, dtype=torch.int64, device=x.device)
@@ -453,6 +562,50 @@ def _moe_dispatch(p: MoE, x, cfg: ArchConfig):
     out = ye.new_zeros(R * T + 1, d)
     out.index_add_(0, tok[:-1], ye * gate[:-1, None].to(ye.dtype))
     return out[:-1].view(R, T, d)
+
+
+# -- the MoE under a mesh -----------------------------------------------------
+
+def _moe_on_mesh(p: MoE, x, cfg: ArchConfig, mesh):
+    """The MoE on the ranks of ``mesh``, the counterpart of the
+    reference's ``_moe_shard_map``, split by
+    ``distributed.sharding.moe_region``: each rank holds E / model experts
+    (its block of the expert axis, from ``e0``), routes its tokens in
+    float32, keeps the assignments of its own experts (the others to the
+    trash expert El) with the per-row capacity ``C = ceil(L k / E *
+    factor)`` of all E experts, runs the expert GLU as three grouped
+    matmuls over its local experts and combines in slot order; the partial
+    outputs sum over "model".
+
+    Under expert parallelism (``ep``) a rank takes the tokens of its data
+    shard, one dispatch row each (no ``moe_chunk``), and the sum is in
+    bfloat16, as the reference's ``psum`` (one all-reduce of [B / dp, L, d]
+    a layer). Otherwise (decode, or a batch the data axes do not divide)
+    every rank gathers the whole batch and dispatches it as one device
+    would (the decode's rows, or ``moe_chunk``'s), and the sum keeps the
+    working dtype, as the reference's partitioned dispatch does.
+
+    ``x`` and the parameters may be DTensors or plain tensors (a plain one
+    is the same on every rank); the result is a DTensor on ``mesh`` when
+    ``x`` is one (sharded over the data axes under ``ep``), else a plain
+    tensor, the same on every rank.
+    """
+    B, L, _ = x.shape
+    region, ep, e0 = _shd.moe_region(mesh, B, L, cfg.moe.num_experts)
+
+    def local(xl, router, *ws):
+        Bl, L, d = xl.shape
+        xr = xl if ep else (xl.reshape(1, Bl, d) if L == 1
+                            else _moe_rows(xl, cfg))
+        # a rank's copy of the router, in the form moe_route reads
+        gates, idx = moe_route(types.SimpleNamespace(router=router), xr, cfg)
+        out = _dispatch(xr, gates, idx, *ws, cfg, _capacity(xr.shape[1], cfg),
+                        e0).reshape(Bl, L, d)
+        return out.to(torch.bfloat16) if ep else out
+
+    out = _shd.on_ranks(mesh, region, local, x, p.router, p.w_gate, p.w_up,
+                        p.w_down).to(x.dtype)
+    return out if _shd.mesh_of(x) is not None else out.full_tensor()
 
 
 # ---------------------------------------------------------------------------
@@ -512,8 +665,7 @@ def rglru_apply(p: RGLRU, x, cfg: ArchConfig, *, state=None,
             shifted = F.pad(u, (0, 0, i, 0))[:, :L]
             conv = conv + shifted * p.conv[cw - 1 - i]
         a, b = _rglru_coeffs(p, conv)
-        hh = (_rg_lru.RGLRUFn.apply(a, b) if _grad(a, b)
-              else _rg_lru.rg_lru(a, b))
+        hh = _scan(a, b)
         new_state = hh[:, -1]
         # the last conv_width inputs become the decode-time conv state
         new_conv = F.pad(u, (0, 0, cw - 1, 0))[:, L - 1:L - 1 + cw]
@@ -528,6 +680,20 @@ def rglru_apply(p: RGLRU, x, cfg: ArchConfig, *, state=None,
         new_conv = conv_state
     out = (hh.to(x.dtype) * gate) @ p.w_out
     return out, (new_state, new_conv)
+
+
+def _scan(a, b):
+    """The recurrence ``h_t = a_t h_{t-1} + b_t`` over [B, L, W] through
+    ``kernels.rg_lru`` (its ``autograd.Function`` when a gradient is
+    wanted). On DTensors each rank scans its rows and channels, split by
+    ``distributed.sharding.scan_region``."""
+    mesh = _shd.mesh_of(a, b)
+    if mesh is not None:
+        return _shd.on_ranks(mesh, _shd.scan_region(mesh, a.shape[0],
+                                                    a.shape[2]),
+                             _scan, a, b, shape=a.shape, stride=a.stride())
+    return (_rg_lru.RGLRUFn.apply(a, b) if _grad(a, b)
+            else _rg_lru.rg_lru(a, b))
 
 
 def rglru_state(cfg: ArchConfig, batch: int, device=None):

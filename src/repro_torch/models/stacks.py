@@ -34,11 +34,13 @@ on axis 0.
 from __future__ import annotations
 
 import math
+import operator
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import stream
 from . import layers as ly
 from .config import ArchConfig
 
@@ -139,15 +141,16 @@ def prefix_len(cfg: ArchConfig) -> int:
 
 
 def _layer_apply(layer: Layer, x, cfg: ArchConfig, positions, cache,
-                 write_index, memory=None):
+                 write_index, memory=None, add=operator.add):
     """Returns (x, new_cache). ``memory``: the encoder's output and its
     positions at an enc-dec prefill (``dec`` layers project their cross
-    K/V from it), else None (they read the cached K/V)."""
+    K/V from it), else None (they read the cached K/V). ``add``: the
+    residual add (``layers.residual_add`` of the stack call's input)."""
     kind = layer.kind
     if kind in ("mlstm", "slstm"):
         apply = ly.mlstm_apply if kind == "mlstm" else ly.slstm_apply
         y, nc = apply(getattr(layer, kind), layer.norm1(x), cfg, state=cache)
-        return x + y, nc
+        return add(x, y), nc
     if kind == "rec":
         y, nc = ly.rglru_apply(
             layer.rglru, layer.norm1(x), cfg,
@@ -161,15 +164,15 @@ def _layer_apply(layer: Layer, x, cfg: ArchConfig, positions, cache,
                               positions=positions, causal=kind != "enc",
                               window=window, cache=self_cache,
                               write_index=write_index)
-    x = x + y
+    x = add(x, y)
     if kind == "dec":
         kv = cache[1] if memory is None else ly.cross_kv(
             layer.xattn, memory[0], cfg, memory[1])
-        x = x + ly.cross_attend(layer.xattn, layer.norm_x(x), cfg, kv)
+        x = add(x, ly.cross_attend(layer.xattn, layer.norm_x(x), cfg, kv))
         nc = (nc, kv)
     h = layer.norm2(x)
-    x = x + (ly.moe_apply(layer.moe, h, cfg) if kind == "moe"
-             else ly.mlp_apply(layer.mlp, h, cfg))
+    x = add(x, ly.moe_apply(layer.moe, h, cfg) if kind == "moe"
+            else ly.mlp_apply(layer.mlp, h, cfg))
     return x, nc
 
 
@@ -219,9 +222,10 @@ def _positions(B: int, L: int, device):
 def _run(p: Stack, cfg: ArchConfig, x, positions, caches, write_index,
          memory=None):
     new_caches = []
+    add = ly.residual_add(x)
     for i, layer in enumerate(p.layers):
         x, nc = _layer_apply(layer, x, cfg, positions, caches[i], write_index,
-                             memory)
+                             memory, add)
         new_caches.append(nc)
     return p.final_norm(x), new_caches
 
@@ -230,10 +234,11 @@ def _train_layers(layers, cfg: ArchConfig, x, positions, memory=None):
     """The layers without caches; each checkpointed under ``remat="layer"``
     while autograd records."""
     remat = cfg.remat == "layer" and torch.is_grad_enabled()
+    add = ly.residual_add(x)
     for layer in layers:
         def body(x, layer=layer):
             return _layer_apply(layer, x, cfg, positions, None, None,
-                                memory)[0]
+                                memory, add)[0]
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return x
 
@@ -243,8 +248,8 @@ def _encoder(p: Stack, cfg: ArchConfig, frontend_embeds):
     to bfloat16, as the reference does whatever the weights' dtype) through
     ``frontend_proj``, the ``enc`` layers and ``enc_final_norm``. Returns
     (memory [B, Le, d], positions [B, Le])."""
-    fx = frontend_embeds.to(torch.bfloat16).to(p.frontend_proj.dtype) \
-        @ p.frontend_proj
+    fx = stream(frontend_embeds.to(torch.bfloat16).to(
+        p.frontend_proj.dtype) @ p.frontend_proj)
     B, Le, _ = fx.shape
     pos = _positions(B, Le, fx.device)
     fx = _train_layers(p.enc_layers, cfg, fx, pos)
@@ -272,7 +277,7 @@ def _embed(p: Stack, cfg: ArchConfig, tokens, frontend_embeds):
             frontend_embeds is not None:
         fx = frontend_embeds.to(x.dtype) @ p.frontend_proj
         x = torch.cat([fx, x], 1)
-    x = _scale_embed(cfg, x)
+    x = stream(_scale_embed(cfg, x))
     memory = None
     if cfg.enc_dec:
         if frontend_embeds is None:
@@ -333,7 +338,7 @@ def decode_step(p: Stack, cfg: ArchConfig, token, cache, index: int):
     float32, cache); attention caches are updated in place, recurrent
     states replaced."""
     B = token.shape[0]
-    x = _scale_embed(cfg, p.embed[token])
+    x = stream(_scale_embed(cfg, p.embed[token]))
     positions = torch.full((B, 1), int(index), dtype=torch.int32,
                            device=x.device)
     x, new_cache = _run(p, cfg, x, positions, cache, int(index))

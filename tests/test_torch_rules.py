@@ -69,7 +69,9 @@ def test_port_imports_with_jax_repro_networkx_blocked():
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.launch.serve, repro_torch.launch.train\n"
             "import repro_torch.optim, repro_torch.data, repro_torch.elastic\n"
-            "import repro_torch.checkpoint, repro_torch.launch.steps\n")
+            "import repro_torch.checkpoint, repro_torch.launch.steps\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.cost\n"
+            "import repro_torch.launch.dryrun, repro_torch.distributed\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -389,8 +391,13 @@ def test_grouped_matmul_validates_kernel_inputs():
     for args in bad:
         with pytest.raises(ValueError):
             Q_gmm._check(*args)
-    with pytest.raises(ValueError, match="float32"):
-        Q_gmm._check(*_gmm_args("cpu", torch.float32))
+    # float32 has a route of its own; x and w must share the dtype
+    Q_gmm._check(*_gmm_args("cpu", torch.float32))
+    for args in [(x.float(), w), (x, w.float()),
+                 _gmm_args("cpu", torch.float64),
+                 _gmm_args("cpu", torch.float16)]:
+        with pytest.raises(ValueError, match="bfloat16 or both float32"):
+            Q_gmm._check(*args)
 
 
 def test_wrappers_refuse_non_cuda_devices(no_kernel_library):
