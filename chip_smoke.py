@@ -209,18 +209,21 @@ Phases, each fatal on failure:
    phase 4's workload (214 slices) with phase 17's masks and telemetry, on
    ``vlb`` and on ``ucmp`` (several slots an entry): 1 rank over NCCL, 2,
    4 and 5 ranks sharing the card over gloo (4 and 5 over the first 64
-   slices), each equal to the one-device run of its length in every field
+   slices; each gloo rank count one spawned group for both schemes),
+   each equal to the one-device run of its length in every field
    and counter, ``check_sharding`` clean, both fabric
    kernels launched one run's count on every rank; slices/s per rank
-   count, exchanges and bytes exchanged a slice.
+   count, exchanges and bytes exchanged a slice, rank 0's start-up by part
+   (imports, unpickling, CUDA context, process group, the shard's set-up).
 
 A. ``simulate_eqo`` at fig12's six update intervals (25 to 800 ns, 200,000
    ns, seed 0) on the card against the port's CPU run: the largest errors
    equal, the means within 1e-12 relative; fig12's two properties; the
    wall ms of each.
 B. Serve xLSTM-350M at full width and depth (24 mLSTM / sLSTM blocks,
-   random weights) as phase 9 serves RecurrentGemma-9B: no kernel of the
-   port is on this path (every count 0). The sLSTM blocks' share of a
+   random weights) as phase 9 serves RecurrentGemma-9B, but with 5
+   requests on the 4 slots (one refill, each refill a full sLSTM prefill):
+   no kernel of the port is on this path (every count 0). The sLSTM blocks' share of a
    prefill (each block synchronised) and the kernels one block launches
    (profiler). One mLSTM and one sLSTM block at full width: the mLSTM's
    chunkwise form against its parallel form and its recurrent steps on the
@@ -2926,22 +2929,35 @@ def check_reconfigure_fleet(dev) -> dict:
     return out
 
 
+def shard_group(cases):
+    """What every rank of one of phase 22(b)'s gloo groups runs:
+    ``simulate_shard`` of each case (both schemes) in the one group, with
+    the debug dict."""
+    from repro_torch.core import simulate_shard
+    return [simulate_shard(*case, with_debug=True) for case in cases]
+
+
 def check_sharded(dev) -> dict:
     """Phase 22(b): ``simulate_sharded`` at 108 ToRs on phase 4's workload
     (131,072 packets, 214 slices) with phase 17's failure and control
     masks and telemetry on, on phase 4's ``vlb`` and on ``ucmp`` (several
     valid slots an entry, so that a lookup hashing a rank's local index
     picks other paths): 1 rank over NCCL, 2, 4 and 5 ranks sharing the card
-    over gloo (4 and 5 over the first 64 slices). Every run equal to the
-    single-device ``simulate`` of its length in every field and counter,
+    over gloo (4 and 5 over the first 64 slices). The one-rank runs are
+    ``simulate_sharded`` calls, one a scheme; each gloo rank count runs
+    both schemes in one group (``shard_group``: one start-up for both).
+    Every run equal to the single-device
+    ``simulate`` of its length in every field and counter,
     ``check_sharding`` clean, every rank's lookup and admission launches
     one run's. Slices/s per rank count (rank 0's run time), exchanges and
-    bytes exchanged a slice. Raises ``SystemExit`` on a mismatch; returns
-    the numbers."""
+    bytes exchanged a slice, rank 0's start-up by part. Raises
+    ``SystemExit`` on a mismatch; returns the numbers."""
     from repro_torch.core import (FabricTables, TelemetryConfig,
                                   compile_control, compile_masks, round_robin,
                                   simulate, simulate_sharded, toolkit, ucmp,
                                   vlb)
+    from repro_torch.core.fabric import SHARD_TIMEOUT_S
+    from repro_torch.distributed import run_ranks
     sched = round_robin(N_TORS, 1)
     wl = main_workload()
     net = faulty_net(sched)
@@ -2951,29 +2967,53 @@ def check_sharded(dev) -> dict:
                                  slice_ns=SLICE_US * 1000.0))
              for S in {S for _, _, S in SHARD_RUNS}}
     tele = TelemetryConfig()
-    out = dict(launches=dict(tfl=0, adm=0))
+    out = dict(launches=dict(tfl=0, adm=0), groups={})
+    tables, one = {}, {}
     for fab, routing in (("vlb", vlb(sched, kpaths=4)), ("ucmp", ucmp(sched))):
-        tables = FabricTables.build(sched, routing)
-        valid = (tables.inj_next >= 0).sum(-1)
-        one, rate = {}, {}
+        tables[fab] = FabricTables.build(sched, routing)
+        valid = (tables[fab].inj_next >= 0).sum(-1)
+        rate = {}
         for S, (fail, ctrl) in masks.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            one[S] = simulate(tables, wl, cfg, S, failures=fail,
-                              control=ctrl, telemetry=tele, device=dev)
+            one[fab, S] = simulate(tables[fab], wl, cfg, S, failures=fail,
+                                   control=ctrl, telemetry=tele, device=dev)
             rate[S] = S / (time.perf_counter() - t0)
         out[fab] = dict(paths_per_entry=float(valid[valid > 0].mean()),
                         one_device_slices_per_s=rate[SLICES])
-        for D, backend, S in SHARD_RUNS:
-            fail, ctrl = masks[S]
-            want = [S * (1 + cfg.hops_per_slice), S * cfg.hops_per_slice]
-            t0 = time.perf_counter()
-            res, dbg = simulate_sharded(tables, wl, cfg, S, num_shards=D,
-                                        failures=fail, control=ctrl,
-                                        telemetry=tele, with_debug=True,
-                                        backend=backend)
-            wall = time.perf_counter() - t0
-            bad = sim_diff(one[S], res)
+    for D, backend, S in SHARD_RUNS:
+        fail, ctrl = masks[S]
+        want = [S * (1 + cfg.hops_per_slice), S * cfg.hops_per_slice]
+        t0 = time.perf_counter()
+        if backend is None:
+            # one NCCL rank: the user's entry point, a call a scheme
+            got, walls = [], []
+            for fab in tables:
+                t1 = time.perf_counter()
+                got.append(simulate_sharded(
+                    tables[fab], wl, cfg, S, num_shards=D, failures=fail,
+                    control=ctrl, telemetry=tele, with_debug=True))
+                walls.append(time.perf_counter() - t1)
+        else:
+            cases = [(tables[fab], wl, cfg, S, fail, ctrl, tele)
+                     for fab in tables]
+            got = run_ranks(shard_group, (cases,), D, backend, "cuda",
+                            SHARD_TIMEOUT_S)
+            walls = [time.perf_counter() - t0] * len(cases)
+        wall = time.perf_counter() - t0
+        runs = sum(dbg["run_s"] for _, dbg in got)
+        # rank 0's start-up, once a spawn; the rest of the wall is the
+        # shard set-up of a group's later runs, the result's way back and
+        # the ranks' exit
+        setup = [dbg["setup_s"] for _, dbg in (got[:1] if backend else got)]
+        out["groups"][f"D{D}"] = dict(
+            backend=backend or "nccl", spawns=len(setup), wall_s=wall,
+            run_s=runs, setup_s=setup,
+            other_s=wall - runs - sum(sum(x.values()) for x in setup))
+        log(f"phase 22(b) {D} ranks ({backend or 'nccl'}): "
+            f"{json.dumps(out['groups'][f'D{D}'])}")
+        for fab, (res, dbg), w in zip(tables, got, walls):
+            bad = sim_diff(one[fab, S], res)
             if bad is not None:
                 raise SystemExit(f"phase 22(b) {fab} on {D} ranks: the "
                                  f"sharded and one-device runs differ in "
@@ -2989,7 +3029,7 @@ def check_sharded(dev) -> dict:
             out["launches"]["tfl"] += int(dbg["launches"][:, 0].sum())
             out["launches"]["adm"] += int(dbg["launches"][:, 1].sum())
             out[fab][f"D{D}"] = dict(
-                backend=backend or "nccl", slices=S, wall_s=wall,
+                backend=backend or "nccl", slices=S, wall_s=w,
                 run_s=dbg["run_s"], slices_per_s=S / dbg["run_s"],
                 exchanges_per_slice=dbg["exchanges"] / S,
                 exchanged_bytes_per_slice=dbg["exchanged_bytes"] / S,
@@ -3132,8 +3172,8 @@ def serve_line(tag, arch, res, n_prefill, n_decode, peak, wall, counts):
         f"init, peak {peak:.2f} GiB; launches {json.dumps(counts)}")
 
 
-def check_served(tag, res, counts, want):
-    if counts != want or res["requests_done"] != SERVE_ARGS["requests"] or \
+def check_served(tag, res, counts, want, requests=SERVE_ARGS["requests"]):
+    if counts != want or res["requests_done"] != requests or \
             res["decode_tokens"] <= 0:
         raise SystemExit(f"phase {tag}: launches {counts} (want {want}), "
                          f"result {res}")
@@ -3221,9 +3261,17 @@ def check_xlstm(dev) -> dict:
     from repro_torch.models import build_model
     from repro_torch.models import layers as ly
     arch = "xlstm-350m"
-    res, counts, n_prefill, n_decode, peak, wall, _ = run_serve(dev, arch)
+    # one request past the slots: one refill (a refill is a whole prefill,
+    # ~12-16 s of sLSTM steps here)
+    requests = SERVE_ARGS["batch"] + 1
+    res, counts, n_prefill, n_decode, peak, wall, _ = run_serve(
+        dev, arch, requests=requests)
     serve_line("B", arch, res, n_prefill, n_decode, peak, wall, counts)
-    check_served("B", res, counts, dict(flash=0, decode=0, rg_lru=0, gmm=0))
+    check_served("B", res, counts, dict(flash=0, decode=0, rg_lru=0, gmm=0),
+                 requests)
+    if n_prefill != 2:
+        raise SystemExit(f"phase B: {n_prefill} prefills (want 2: the batch "
+                         "and one refill)")
     gc.collect()
     torch.cuda.empty_cache()
     bare, inst, sl_ms, sl_calls = part_of_prefill(dev, arch, ly,
@@ -5052,4 +5100,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        # the fork server of phases 22(b) and F, if they started one
+        spawn = sys.modules.get("repro_torch.distributed.spawn")
+        if spawn is not None:
+            spawn.stop_fork_server()
+    sys.exit(rc)

@@ -75,7 +75,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed import collectives, sharding
-from ..distributed.spawn import choose_backend, run_ranks
+from ..distributed.spawn import choose_backend, run_ranks, setup_seconds
 from ..distributed.collectives import (earlier_offsets, exchange_min,
                                        exchange_sum, gather_node_row,
                                        offsets_buffer)
@@ -1397,6 +1397,7 @@ def simulate_shard(tables: FabricTables, wl: Workload, cfg: FabricConfig,
     (and with ``with_debug`` the debug dict), as :func:`simulate_sharded`
     describes. Rank ``r`` runs on ``cuda:(r % device_count)`` unless
     ``device`` names another device (``"cpu"``: the plain versions)."""
+    t_in = time.perf_counter()
     group, D = sharding.fabric_group(None, group)
     r = dist.get_rank(group)
     dev = resolve_device(device)
@@ -1466,7 +1467,8 @@ def simulate_shard(tables: FabricTables, wl: Workload, cfg: FabricConfig,
                          owner=sharding.shard_owner(np.arange(P), P, D),
                          num_shards=D, packet_block=Pl, launches=launches,
                          exchanges=used[2], exchanged_bytes=used[3],
-                         run_s=run_s)
+                         run_s=run_s,
+                         setup_s=dict(setup_seconds(), shard=t0 - t_in))
     return res
 
 
@@ -1501,7 +1503,11 @@ def simulate_sharded(tables: FabricTables, wl: Workload, cfg: FabricConfig,
             ``launches`` (``[D, 2]``: each rank's lookup and admission
             kernel launches), ``exchanges`` and ``exchanged_bytes`` (rank
             0's all-reduces and their bytes), ``run_s`` (rank 0's seconds
-            from the first slice to the gathered result).
+            from the first slice to the gathered result), ``setup_s``
+            (rank 0's start-up by part,
+            :func:`repro_torch.distributed.spawn.setup_seconds`, and
+            ``shard``: its block, masks and state before the first
+            slice).
         device: CUDA by default (rank ``r`` on card ``r % device_count``;
             the kernels are built here, once, before the ranks start);
             ``"cpu"`` runs the plain versions over gloo.

@@ -58,8 +58,8 @@ __all__ = ["fabric_group", "block_len", "shard_owner", "pad_packet_axis",
            "replicated", "param_shardings", "opt_state_shardings",
            "batch_shardings", "frontend_sharding", "cache_shardings",
            "leaf_specs", "placements", "Region", "mesh_of", "on_ranks",
-           "stream", "attention_region", "mlp_region", "scan_region",
-           "moe_region"]
+           "stream", "attention_region", "mlp_region", "column_region",
+           "scan_region", "mlstm_region", "moe_region"]
 
 
 def fabric_group(num_shards: int | None = None, group=None):
@@ -392,11 +392,12 @@ class Region:
     operands (``ins``), those their gradients are taken in (``grads``:
     ``Partial()`` over an axis whose ranks each compute a part of a value
     they share, as ``shard_map``'s transpose sums it), its output's
-    (``out``), and those the output is laid out in after (``then``, None
-    to keep ``out``)."""
+    (``out``; a tuple of them for a region with several outputs), and
+    those the output is laid out in after (``then``, None to keep
+    ``out``)."""
     ins: tuple
     grads: tuple
-    out: list
+    out: list | tuple
     then: list | None = None
 
 
@@ -408,11 +409,15 @@ def on_ranks(mesh, region: Region, fn, *args, shape=None, stride=None):
     laid out by ``region.then``."""
     from torch.distributed.tensor import DTensor, Replicate
     local = []
-    for t, pl, grad in zip(args, region.ins, region.grads):
+    for t, pl, grad in zip(args, region.ins, region.grads, strict=True):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
         local.append(t.redistribute(mesh, pl).to_local(grad_placements=grad))
+    if isinstance(region.out, tuple):
+        # several outputs, each placed by its own entry (even shards)
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                     for o, pl in zip(fn(*local), region.out, strict=True))
     out = DTensor.from_local(fn(*local), mesh, region.out, run_check=False,
                              shape=shape, stride=stride)
     return out if region.then is None else out.redistribute(mesh,
@@ -496,24 +501,54 @@ def attention_region(mesh, B: int, L: int, hq: int, hkv: int,
                   kv_pl if by_pos else None), heads, offset
 
 
-def mlp_region(mesh, B: int, ff: int) -> Region:
+def mlp_region(mesh, B: int, L: int, ff: int) -> Region:
     """How a partitioner splits the GLU MLP of x [B, L, d] and its weights
     (``w_gate``, ``w_up`` [d, ff], ``w_down`` [ff, d]): each rank takes its
     rows (the batch over the data axes, when it divides) and its slice of
     the hidden width (over "model", when it divides); the down product's
-    partial sums add over "model"."""
+    partial sums add over "model". Where the width does not divide and L
+    does (an sLSTM block's MLP of ``int(d * 4 / 3)``), each rank takes its
+    block of the L positions against the whole weights instead, the blocks
+    gathered after, as the reference's partitioner splits that product
+    four ways rather than run it whole on every rank."""
     from torch.distributed.tensor import Shard
     names, dp, rows, msz = _split(mesh, B)
     by_ff = "model" in names and ff % msz == 0
+    by_pos = not by_ff and "model" in names and L % msz == 0 and L > 1
     row = _lay(names, dp, rows)
+    rows_axes = dp if rows else ()
+    if by_pos:
+        own = _lay(names, dp, rows, Shard(1))
+        w = _lay(names, (), False)
+        w_grad = _summed(names, w, rows_axes + ("model",))
+        return Region((own, w, w, w), (own, w_grad, w_grad, w_grad), own,
+                      row)
     x_grad = _summed(names, row, ("model",) if by_ff else ())
     w_in, w_out = (_lay(names, (), False, Shard(dim) if by_ff else None)
                    for dim in (1, 0))
-    rows_axes = dp if rows else ()
     return Region((row, w_in, w_in, w_out),
                   (x_grad, _summed(names, w_in, rows_axes),
                    _summed(names, w_in, rows_axes),
                    _summed(names, w_out, rows_axes)), x_grad)
+
+
+def column_region(mesh, B: int, N: int, ndim: int) -> Region:
+    """How a partitioner splits a product ``x @ w`` of x [B, ..., d]
+    (``ndim`` dims) and w [d, N]: each rank takes its rows (the batch over
+    the data axes, when it divides) against its block of w's columns (over
+    "model", when it divides N), its output those columns. Each rank's x
+    gradient is a part of the sum over "model"; w's sums over the data
+    axes. (DTensor's own rule computes w's gradient whole on every rank
+    when the output's gradient comes back replicated.)"""
+    from torch.distributed.tensor import Shard
+    names, dp, rows, msz = _split(mesh, B)
+    by_cols = "model" in names and N % msz == 0
+    row = _lay(names, dp, rows)
+    w = _lay(names, (), False, Shard(1) if by_cols else None)
+    out = _lay(names, dp, rows, Shard(ndim - 1) if by_cols else None)
+    return Region((row, w), (_summed(names, row, ("model",) if by_cols
+                                     else ()),
+                             _summed(names, w, dp if rows else ())), out)
 
 
 def scan_region(mesh, B: int, W: int) -> Region:
@@ -525,6 +560,42 @@ def scan_region(mesh, B: int, W: int) -> Region:
     pl = _lay(names, dp, rows,
               Shard(2) if "model" in names and W % msz == 0 else None)
     return Region((pl, pl), (pl, pl), pl)
+
+
+def mlstm_region(mesh, B: int, H: int, with_state: bool):
+    """How a partitioner splits the mLSTM's gates and recurrence over q, k,
+    v [B, L, H, hd], the up-projection ``up`` [B, L, dp] and the gate
+    weights ``w_if`` [dp, 2 H] (the gates are computed inside), and with
+    ``with_state`` the state C [B, H, hd, hd], n [B, H, hd], m [B, H] (the
+    cache at a prefill or a decode step): the batch over the data axes and
+    the heads over "model", where they divide; otherwise each rank runs
+    every head of its rows. ``up`` and ``w_if`` come whole over "model",
+    each rank taking its heads' gate columns, so their gradients sum over
+    the ranks that each compute a part; q, k, v and the state keep their
+    placements for their gradients. Outputs h [B, L, H, hd] and, with a
+    state, the new state, placed as the inputs.
+
+    Returns (the :class:`Region` over (q, k, v, up, w_if[, C, n, m]), the
+    heads of this rank, a ``slice`` or None for all)."""
+    from torch.distributed.tensor import Shard
+    names, dp, rows, msz = _split(mesh, B)
+    by_heads = "model" in names and H % msz == 0
+    seq = _lay(names, dp, rows, Shard(2) if by_heads else None)
+    up = _lay(names, dp, rows)
+    w = _lay(names, (), False)
+    split = ("model",) if by_heads else ()
+    heads = None
+    if by_heads:
+        h0 = mesh.get_local_rank("model") * (H // msz)
+        heads = slice(h0, h0 + H // msz)
+    ins = (seq,) * 3 + (up, w)
+    grads = (seq,) * 3 + (_summed(names, up, split),
+                          _summed(names, w, (dp if rows else ()) + split))
+    if not with_state:
+        return Region(ins, grads, seq), heads
+    st = _lay(names, dp, rows, Shard(1) if by_heads else None)
+    return Region(ins + (st,) * 3, grads + (st,) * 3, (seq, st, st, st)), \
+        heads
 
 
 def moe_region(mesh, B: int, L: int, E: int):

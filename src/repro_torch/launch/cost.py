@@ -14,7 +14,12 @@ DTensor's sharding propagation runs on fake tensors of the global shapes
 are not counted. A Python loop is counted as it runs, once per pass;
 :meth:`CostMode.weighted` multiplies what runs under it (the train step
 counts one micro-batch weighted by their number, as the reference weights
-its scan's body).
+its scan's body). A loop whose passes do alike work goes through
+:func:`passes`: on real tensors every pass runs; on fake tensors the first
+pass, the second and the last run, and :meth:`CostMode.weighted_pass`
+counts the second as all the passes between, its forward and its backward
+(the autograd nodes it records), as the reference weights a ``while`` body
+by its trip count.
 
   flops            matmul-family ops (mm, bmm, addmm, baddbmm, mv, dot):
                    2 * numel(result) * the contracted size, the HLO rule
@@ -43,7 +48,8 @@ from collections import defaultdict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["CostMode", "CostStats", "HW", "roofline_terms", "analyze"]
+__all__ = ["CostMode", "CostStats", "HW", "roofline_terms", "analyze",
+           "passes", "all_passes"]
 
 _MATMUL = {"mm", "bmm", "addmm", "baddbmm", "mv", "dot", "addmv"}
 _GATHER = {"index", "index_select", "gather", "embedding", "take_along_dim"}
@@ -99,6 +105,9 @@ class CostMode(TorchDispatchMode):
         self.by_kind: dict[str, float] = defaultdict(float)
         self.collective_ops = 0
         self._weight = 1.0
+        # the autograd nodes of each weighted pass: [first, end) of their
+        # sequence numbers and the pass's weight
+        self._passes: list[tuple[int, int, float]] = []
         self._propagating = 0
         self._patched = None
 
@@ -111,6 +120,36 @@ class CostMode(TorchDispatchMode):
             yield
         finally:
             self._weight = old
+
+    @contextlib.contextmanager
+    def weighted_pass(self, n: float):
+        """Count what runs inside ``n`` times over, and the backward of the
+        autograd nodes it records ``n`` times over too (one pass of a loop
+        standing for ``n``). Refuses to run inside the backward of such a
+        pass (a recomputation there would be counted twice over)."""
+        if self._node_weight() != 1.0:
+            raise RuntimeError("a weighted pass run inside the backward of "
+                               "another: its count would be wrong")
+        first = torch._C._autograd._get_sequence_nr()
+        with self.weighted(n):
+            yield
+        end = torch._C._autograd._get_sequence_nr()
+        if end > first:
+            self._passes.append((first, end, n))
+
+    def _node_weight(self) -> float:
+        """The weight of the autograd node whose backward runs now: the
+        product of the weighted passes that recorded it (1 outside them)."""
+        if not self._passes:
+            return 1.0
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1.0
+        seq, w = node._sequence_nr(), 1.0
+        for first, end, n in self._passes:
+            if first <= seq < end:
+                w *= n
+        return w
 
     def __enter__(self):
         # DTensor's sharding propagation runs each new op once on fakes of
@@ -147,7 +186,7 @@ class CostMode(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         name = func._schema.name.split("::")[-1]
-        w = self._weight
+        w = self._weight * self._node_weight()
         if name in _COLLECTIVES:
             ob = _nbytes(args[0])
             self.by_kind[_COLLECTIVES[name]] += w * ob
@@ -178,6 +217,43 @@ class CostMode(TorchDispatchMode):
                          collective_bytes=float(sum(self.by_kind.values())),
                          collectives_by_kind=dict(self.by_kind),
                          collective_ops=self.collective_ops)
+
+
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return isinstance(t, torch.Tensor) and is_fake(t)
+
+
+def passes(n: int, *tensors):
+    """The passes to run of a loop of ``n`` passes that do alike work, by
+    index: all ``n`` when ``tensors`` hold values; on fake tensors (the dry
+    run, where no pass computes a value) the first, the second and the
+    last, the second counted ``n - 2`` times over by the active
+    :class:`CostMode`, forward and backward. The first and the last run on
+    their own because their backward differs: the first pass's carried
+    state starts as a constant without a gradient, and nothing reads the
+    last pass's carried state. Collect the passes' outputs with
+    :func:`all_passes`."""
+    if n <= 3 or not any(_is_fake(t) for t in tensors):
+        yield from range(n)
+        return
+    yield 0
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, CostMode)]
+    with (modes[-1].weighted_pass(n - 2) if modes
+          else contextlib.nullcontext()):
+        yield 1
+    yield n - 1
+
+
+def all_passes(outs: list, n: int) -> list:
+    """The ``n`` per-pass outputs of a loop run by :func:`passes`: ``outs``
+    as they are, or after a weighted run of three passes the second's
+    repeated in place of the passes not run."""
+    if len(outs) == n:
+        return outs
+    return outs[:1] + outs[1:2] * (n - 2) + outs[2:]
 
 
 def analyze(fn, *args, **kwargs) -> tuple[object, CostStats]:

@@ -55,6 +55,7 @@ from ..kernels import flash_attention as _flash
 from ..kernels import grouped_matmul as _gmm
 from ..distributed import sharding as _shd
 from ..kernels import rg_lru as _rg_lru
+from ..launch import cost as _cost
 from .chunked_attention import FlashAttentionFn
 from .config import ArchConfig
 
@@ -410,12 +411,25 @@ def _act(cfg: ArchConfig, x):
 def mlp_apply(p: MLP, x, cfg: ArchConfig):
     mesh = _shd.mesh_of(x, p.w_gate)
     if mesh is not None:
-        # each rank its rows and its slice of the hidden width
+        # each rank its rows and its slice of the hidden width (or, where
+        # the width does not divide, its block of positions)
         return _shd.on_ranks(
-            mesh, _shd.mlp_region(mesh, x.shape[0], p.w_gate.shape[1]),
+            mesh, _shd.mlp_region(mesh, x.shape[0], x.shape[1],
+                                  p.w_gate.shape[1]),
             lambda x, wg, wu, wd: (_act(cfg, x @ wg) * (x @ wu)) @ wd,
             x, p.w_gate, p.w_up, p.w_down, shape=x.shape, stride=x.stride())
     return (_act(cfg, x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+def _columns(x, w):
+    """``x @ w``; on DTensors each rank its rows against its columns of w
+    (``distributed.sharding.column_region``)."""
+    mesh = _shd.mesh_of(x, w)
+    if mesh is None:
+        return x @ w
+    return _shd.on_ranks(mesh, _shd.column_region(mesh, x.shape[0],
+                                                  w.shape[1], x.dim()),
+                         torch.matmul, x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -641,8 +655,8 @@ def _rglru_coeffs(p: RGLRU, u):
     """u: [..., w] post-conv activations -> (a, gated input), both float32."""
     c = 8.0
     uf = u.float()
-    r = torch.sigmoid(uf @ p.w_a.float())
-    i = torch.sigmoid(uf @ p.w_x.float())
+    r = torch.sigmoid(_columns(uf, p.w_a.float()))
+    i = torch.sigmoid(_columns(uf, p.w_x.float()))
     a = torch.exp(-c * F.softplus(p.lam) * r)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-8)) * (i * uf)
     return a, gated
@@ -766,16 +780,46 @@ def mlstm_apply(p: MLSTM, x, cfg: ArchConfig, *, state=None):
     q = (up @ p.wq).reshape(B, L, H, hd)
     k = (up @ p.wk).reshape(B, L, H, hd) / math.sqrt(hd)
     v = (up @ p.wv).reshape(B, L, H, hd)
-    gifs = (up.float() @ p.w_if).reshape(B, L, H, 2)
-    i_pre, f_pre = gifs[..., 0], gifs[..., 1]
-    log_f = -F.softplus(-f_pre)                          # log sigmoid
+    mesh = _shd.mesh_of(q, k, v)
+    if mesh is not None:
+        # each rank the gates and the recurrence of its rows and heads
+        region, heads = _shd.mlstm_region(mesh, B, H, state is not None)
 
-    chunk = cfg.mlstm_chunk
+        def local(q, k, v, up, w_if, *st):
+            if heads is not None:
+                w_if = w_if[:, 2 * heads.start:2 * heads.stop]
+            h, ns = _mlstm_forms(q, k, v, *_mlstm_gates(up, w_if),
+                                 st or None, cfg.mlstm_chunk)
+            return h if ns is None else (h, *ns)
+        got = _shd.on_ranks(mesh, region, local, q, k, v, up, p.w_if,
+                            *(state or ()))
+        h, new_state = (got, None) if state is None else (got[0], got[1:])
+    else:
+        h, new_state = _mlstm_forms(q, k, v, *_mlstm_gates(up, p.w_if),
+                                    state, cfg.mlstm_chunk)
+    out = (h.reshape(B, L, dp) * gate) @ p.w_down
+    return out, new_state
+
+
+def _mlstm_gates(up, w_if):
+    """The input and log forget gates [B, L, H] float32 of the heads whose
+    (i, f) columns ``w_if`` [dp, 2 H] holds."""
+    B, L, _ = up.shape
+    gifs = (up.float() @ w_if).reshape(B, L, -1, 2)
+    return gifs[..., 0], -F.softplus(-gifs[..., 1])      # i, log sigmoid f
+
+
+def _mlstm_forms(q, k, v, i_pre, log_f, state, chunk: int):
+    """The recurrence of :func:`mlstm_apply` in its three forms: q, k, v
+    [B, L, H, hd], the gates i_pre, log_f [B, L, H] float32, the state
+    ``(C, n, m)`` or None. Returns (h [B, L, H, hd], the state after the
+    last token, None without ``state``)."""
+    B, L, H, hd = q.shape
     if L > 1 and chunk and L > chunk and L % chunk == 0:
         h, new_state = _mlstm_chunkwise(
             q, k, v, i_pre, log_f,
             state if state is not None else mlstm_state_like(B, H, hd,
-                                                             x.device),
+                                                             q.device),
             chunk)
         if state is None:
             new_state = None
@@ -786,9 +830,9 @@ def mlstm_apply(p: MLSTM, x, cfg: ArchConfig, *, state=None):
         W = torch.exp(D - m)                             # [B, L, L, H]
         scores = torch.einsum("blhd,bshd->blsh", q, k).float()
         Wqk = W * scores
-        num = torch.einsum("blsh,bshd->blhd", Wqk.to(x.dtype), v)
+        num = torch.einsum("blsh,bshd->blhd", Wqk.to(q.dtype), v)
         den = Wqk.sum(2).abs()                           # [B, L, H]
-        h = num / den.clamp(min=1.0)[..., None].to(x.dtype)
+        h = num / den.clamp(min=1.0)[..., None].to(q.dtype)
         new_state = None
         if state is not None:
             # the recurrent state after the last token
@@ -814,11 +858,10 @@ def mlstm_apply(p: MLSTM, x, cfg: ArchConfig, *, state=None):
         n = fw * n + iw * kh
         num = (C @ qh[..., None])[..., 0]                # [B, H, hd]
         den = (n * qh).sum(-1).abs()
-        h = (num / den.clamp(min=1.0)[..., None]).to(x.dtype)
+        h = (num / den.clamp(min=1.0)[..., None]).to(q.dtype)
         h = h.reshape(B, 1, H, hd)
         new_state = (C, n, m_new)
-    out = (h.reshape(B, L, dp) * gate) @ p.w_down
-    return out, new_state
+    return h, new_state
 
 
 def mlstm_state(cfg: ArchConfig, batch: int, device=None):
@@ -843,8 +886,8 @@ def _mlstm_chunkwise(q, k, v, i_pre, log_f, state, chunk: int):
     B, L, H, hd = q.shape
     C, n, m_prev = state
     hs = []
-    for c0 in range(0, L, chunk):
-        sl = slice(c0, c0 + chunk)
+    for c in _cost.passes(L // chunk, q):
+        sl = slice(c * chunk, (c + 1) * chunk)
         qc, kc, vc, ic = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl]
         Fc = torch.cumsum(log_f[:, sl], 1)               # [B, c, H]
         D = _causal_log_weights(Fc, ic)
@@ -871,7 +914,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, log_f, state, chunk: int):
             "bshd,bshe->bhde", wstate[..., None] * vf, kf)
         n = carry[..., None] * n + torch.einsum("bsh,bshd->bhd", wstate, kf)
         m_prev = m_new
-    return torch.cat(hs, 1), (C, n, m_prev)
+    return torch.cat(_cost.all_passes(hs, L // chunk), 1), (C, n, m_prev)
 
 
 class SLSTM(nn.Module):
@@ -898,12 +941,12 @@ def slstm_apply(p: SLSTM, x, cfg: ArchConfig, *, state=None):
     ``h`` rounded to x's dtype times ``w_h``; the cell runs in float32.
     x [B, L, d] -> (out, state ``(c, n, h, m)`` [B, d] float32 each)."""
     B, L, d = x.shape
-    wx = x @ p.w_x                                       # [B, L, 4d]
+    wx = _columns(x, p.w_x)                              # [B, L, 4d]
     c, n, h, m = state if state is not None else slstm_state(cfg, B,
                                                              x.device)
     hs = []
-    for t in range(L):
-        g = (wx[:, t] + h.to(x.dtype) @ p.w_h).float()
+    for t in _cost.passes(L, wx):
+        g = (wx[:, t] + _columns(h.to(x.dtype), p.w_h)).float()
         i_pre, f_pre, z, o = g.chunk(4, dim=-1)
         log_f = -F.softplus(-f_pre)
         m_new = torch.maximum(log_f + m, i_pre)
@@ -914,7 +957,7 @@ def slstm_apply(p: SLSTM, x, cfg: ArchConfig, *, state=None):
         h = torch.sigmoid(o) * c / n.clamp(min=1.0)
         m = m_new
         hs.append(h)
-    hx = torch.stack(hs, 1).to(x.dtype)                  # [B, L, d]
+    hx = torch.stack(_cost.all_passes(hs, L), 1).to(x.dtype)  # [B, L, d]
     return hx + mlp_apply(p.w_ffn, hx, cfg), (c, n, h, m)
 
 

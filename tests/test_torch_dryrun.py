@@ -15,6 +15,13 @@
   reference's, not held (DTensor and GSPMD choose other collectives).
   The same process runs the CLI on a cell the reference skips and holds
   the collectives' byte rule on the fake group.
+* The recurrent smoke cells, ``recurrentgemma-9b`` and ``xlstm-350m``
+  reduced, as train and as prefill, the same way: the reference weights
+  its scans' bodies by their trip counts, the port counts one pass of
+  each loop weighted (``cost.passes``).
+* ``cost.passes`` itself: the RG-LRU scan, the sLSTM's step loop and the
+  mLSTM's chunk loop at a tiny L, counted on fake tensors (three passes,
+  one weighted) and pass by pass on real tensors.
 """
 import json
 import os
@@ -128,15 +135,17 @@ print("RESULT " + json.dumps(out))
 """
 
 
-def _reference_cell(kind):
-    """The reference's ``lower_cell`` of the smoke cell on a (2, 4) mesh
-    of its forced CPU devices (its own ``lower_cell`` takes the
-    production mesh and ``SHAPES`` only)."""
+def _reference_cell(kind, arch=None):
+    """The reference's ``lower_cell`` of a smoke cell (``olmo-1b`` with 4
+    KV heads, or ``arch`` reduced) on a (2, 4) mesh of its forced CPU
+    devices (its own ``lower_cell`` takes the production mesh and
+    ``SHAPES`` only)."""
     from repro.configs import get_config
     from repro.distributed import sharding as R_S
     from repro.launch import steps as R_steps
     from repro.models.config import ShapeConfig
-    cfg = get_config("olmo-1b").reduced(n_kv_heads=4)
+    cfg = get_config("olmo-1b").reduced(n_kv_heads=4) if arch is None \
+        else get_config(arch).reduced()
     shape = ShapeConfig(f"{kind}_smoke", SMOKE["L"], SMOKE["B"], kind)
     n = int(np.prod(SMOKE["mesh"]))
     mesh = jax.make_mesh(SMOKE["mesh"], ("data", "model"),
@@ -208,3 +217,105 @@ def test_collective_rule_and_cli_skip(port_cells):
     assert cli["skipped"].startswith("full-attention arch")
     assert (cli["arch"], cli["shape"], cli["mesh"]) == \
         ("olmo-1b", "long_500k", "single")
+
+
+_PORT_CELL = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models.config import ShapeConfig
+arch, kind, L, B, mesh = json.loads(sys.argv[1])
+got = dryrun.lower_cell(
+    get_config(arch).reduced(), f"{kind}_smoke", False,
+    shape=ShapeConfig(f"{kind}_smoke", L, B, kind),
+    mesh_shape=MeshShape(("data", "model"), tuple(mesh)))
+print("RESULT " + json.dumps(got))
+"""
+
+
+@pytest.mark.multidevice
+@pytest.mark.parametrize("arch,kind", [
+    ("recurrentgemma-9b", "train"), ("recurrentgemma-9b", "prefill"),
+    ("xlstm-350m", "train"), ("xlstm-350m", "prefill")])
+def test_recurrent_smoke_cell_flops_match_reference(arch, kind):
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the forced 8-device CPU mesh")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _PORT_CELL, json.dumps(
+            [arch, kind, SMOKE["L"], SMOKE["B"], list(SMOKE["mesh"])])],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert out.returncode == 0 and lines, out.stderr[-3000:]
+    got = json.loads(lines[-1][len("RESULT "):])
+    ref = _reference_cell(kind, arch)
+    ratio = got["cost"]["flops_per_device"] / ref.flops
+    print(f"{arch} {kind}: port FLOPs/device "
+          f"{got['cost']['flops_per_device']:.6g}, reference {ref.flops:.6g}"
+          f" (ratio {ratio:.4f}); collectives "
+          f"{got['cost']['collectives_by_kind']} vs {ref.collectives_by_kind}")
+    assert abs(ratio - 1.0) <= FLOPS_TOL, ratio
+    assert got["replicated_fallbacks"] == {}
+
+
+def _loop_cost(kind: str, fake: bool, grad: bool):
+    """The cost of one recurrent loop at B = 2, L = 12 (the mLSTM in
+    chunks of 4): the scan, an sLSTM block or an mLSTM block of
+    ``xlstm-350m`` reduced, forward only or with the gradients of its
+    input and weights; on fake tensors or on real ones from seed 0."""
+    import contextlib
+    import dataclasses
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rg_lru
+    from repro_torch.models import layers as ly
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              mlstm_chunk=4)
+    B, L = 2, 12
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        gen = torch.Generator().manual_seed(0)
+        if kind == "scan":
+            a, b = (torch.rand(B, L, 16, generator=gen).requires_grad_(grad)
+                    for _ in range(2))
+            leaves = [a, b]
+
+            def fn():
+                return rg_lru.RGLRUFn.apply(a, b) if grad else \
+                    rg_lru.rg_lru(a, b)
+        else:
+            p = (ly.SLSTM if kind == "slstm" else ly.MLSTM)(cfg)
+            for w in p.parameters():
+                w.requires_grad_(False).copy_(torch.randn(
+                    w.shape, generator=gen)).requires_grad_(grad)
+            x = torch.randn(B, L, cfg.d_model, generator=gen) \
+                .bfloat16().requires_grad_(grad)
+            leaves = [x, *p.parameters()]
+            apply = ly.slstm_apply if kind == "slstm" else ly.mlstm_apply
+
+            def fn():
+                return apply(p, x, cfg)[0]
+        with cost.CostMode() as mode:
+            out = fn()
+            if grad:
+                torch.autograd.grad(out.float().sum(), leaves)
+    return mode.stats()
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["forward", "train"])
+@pytest.mark.parametrize("kind", ["scan", "slstm", "mlstm"])
+def test_weighted_loop_counts_equal_pass_by_pass(kind, grad):
+    """On fakes a loop runs its first, second and last passes, the second
+    weighted for the rest; pass by pass on real tensors it counts the same
+    FLOPs and bytes. One exception: in the sLSTM's backward the engine adds
+    up the gradient of the repeated middle output once for each of its
+    uses where a pass-by-pass run adds each step's two parts (0.3% of the
+    bytes here), so there the bytes are held within 1%."""
+    fake = _loop_cost(kind, True, grad)
+    real = _loop_cost(kind, False, grad)
+    assert fake.flops == real.flops
+    if kind == "slstm" and grad:
+        assert abs(fake.bytes / real.bytes - 1.0) < 0.01
+    else:
+        assert fake.bytes == real.bytes
+    assert (real.flops > 0) == (kind != "scan") and real.bytes > 0

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that no parity test covers:
 
 * no module of ``src/repro_torch/``, nor ``chip_smoke.py``,
-  ``chip_fault_probe.py``, ``chip_decode_probe.py`` or the port's
-  examples (``examples/*_torch.py``), imports ``jax``,
+  ``chip_fault_probe.py``, ``chip_decode_probe.py``, the port's
+  examples (``examples/*_torch.py``) or scripts (``scripts/*_torch.py``),
+  imports ``jax``,
   ``repro`` or ``networkx`` (the card's machine has none of them), and the
   package imports with all three blocked;
 * entry points run on CUDA unless told otherwise: without a card and
@@ -41,7 +42,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "networkx", "benchmarks"}
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "chip_fault_probe.py",
                  ROOT / "chip_decode_probe.py"]
-              + sorted((ROOT / "examples").glob("*_torch.py")))
+              + sorted((ROOT / "examples").glob("*_torch.py"))
+              + sorted((ROOT / "scripts").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set:
